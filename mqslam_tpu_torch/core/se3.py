@@ -1,0 +1,53 @@
+"""SE(3) rigid transforms as 4x4 homogeneous matrices, batched.
+
+The extrinsic matrix ``P`` maps world points to camera coordinates:
+``x_cam = P @ [x_world, 1]``.
+"""
+
+import torch
+
+from mqslam_tpu_torch.core import so3 as _so3
+from mqslam_tpu_torch.core.smallmat import matmul_small, matvec_small
+
+__all__ = ["from_R_t", "from_rvec_tvec", "to_rvec_tvec", "inv", "compose",
+           "apply"]
+
+
+def from_R_t(R, t):
+    """4x4 P from rotation [..., 3, 3] and translation [..., 3]."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                          device=top.device).expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def from_rvec_tvec(rvec, tvec):
+    """4x4 P from (rvec, tvec) as produced by PnP."""
+    return from_R_t(_so3.exp(rvec), tvec)
+
+
+def to_rvec_tvec(P):
+    """(rvec, tvec) from 4x4 P."""
+    return _so3.log(P[..., :3, :3]), P[..., :3, 3]
+
+
+def inv(P):
+    """Closed-form rigid inverse: [R t]^-1 = [R^T, -R^T t]."""
+    R = P[..., :3, :3]
+    t = P[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+    return from_R_t(Rt, -matvec_small(Rt, t))
+
+
+def compose(P2, P1):
+    """P2 after P1 (matrix product in exact float32)."""
+    return matmul_small(P2, P1)
+
+
+def apply(P, pts):
+    """Apply P to 3D point(s) [..., 3]; P's batch dims must broadcast
+    against the points' (insert a point axis: ``P[..., None, :, :]``)."""
+    return matvec_small(P[..., :3, :3], pts) + P[..., :3, 3]

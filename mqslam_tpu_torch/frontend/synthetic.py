@@ -1,0 +1,137 @@
+"""Synthetic textured-plane sequence renderer (NumPy only).
+
+A fully-known test world: texture on the z = plane_z plane, known camera
+trajectory, closed-form init correspondences.  ``build_sequence`` and
+``build_divergent_fleet`` construct the multi-agent throughput workload:
+A independent agents with distinct textures, start offsets, turn rates and
+velocities, so keyframes de-synchronize across the fleet.
+"""
+
+import numpy as np
+
+__all__ = ["make_texture", "render_plane_sequence", "backproject_to_plane",
+           "build_sequence", "divergent_fleet_params",
+           "build_divergent_fleet"]
+
+
+def make_texture(rng, size=1024, blur_passes=2):
+    """Smooth random texture with dense gradient structure (float 0..255)."""
+    tex = rng.rand(size // 4, size // 4) * 255.0
+    tex = np.kron(tex, np.ones((4, 4)))
+    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0])
+    k = np.outer(k, k)
+    k /= k.sum()
+    for _ in range(blur_passes):
+        padded = np.pad(tex, 2, mode="wrap")
+        out = np.zeros_like(tex)
+        for i in range(5):
+            for j in range(5):
+                out += k[i, j] * padded[i:i + tex.shape[0],
+                                        j:j + tex.shape[1]]
+        tex = out
+    return tex
+
+
+def _bilinear_wrap(tex, x, y):
+    h, w = tex.shape
+    # float mod can return exactly w (huge inputs from rays grazing the
+    # plane, tiny negatives) — re-fold and clamp before indexing
+    x = np.mod(np.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0), w)
+    y = np.mod(np.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0), h)
+    x = np.where(x >= w, x - w, x)
+    y = np.where(y >= h, y - h, y)
+    x0 = np.minimum(np.floor(x).astype(int), w - 1)
+    y0 = np.minimum(np.floor(y).astype(int), h - 1)
+    x1 = (x0 + 1) % w
+    y1 = (y0 + 1) % h
+    fx = x - x0
+    fy = y - y0
+    return ((1 - fy) * ((1 - fx) * tex[y0, x0] + fx * tex[y0, x1])
+            + fy * ((1 - fx) * tex[y1, x0] + fx * tex[y1, x1]))
+
+
+def render_plane_sequence(P_list, texture, size=(320, 240), f=280.0,
+                          plane_z=4.0, tex_scale=64.0):
+    """Render grayscale frames of the textured z=plane_z plane.
+
+    P_list: [n, 4, 4] world-to-cam extrinsics. Returns imgs [n, H, W] f32.
+    """
+    W, H = size
+    cx, cy = W / 2.0, H / 2.0
+    us, vs = np.meshgrid(np.arange(W), np.arange(H))
+    xn = (us - cx) / f
+    yn = (vs - cy) / f
+    d_cam = np.stack([xn, yn, np.ones_like(xn)], axis=-1)  # [H, W, 3]
+    imgs = []
+    for P in P_list:
+        R = P[:3, :3]
+        t = P[:3, 3]
+        c = -R.T @ t                      # camera center in world
+        d_world = d_cam @ R               # R^T applied to each ray
+        s = (plane_z - c[2]) / d_world[..., 2]
+        wx = c[0] + s * d_world[..., 0]
+        wy = c[1] + s * d_world[..., 1]
+        imgs.append(_bilinear_wrap(texture, wx * tex_scale,
+                                   wy * tex_scale).astype(np.float32))
+    return np.stack(imgs)
+
+
+def backproject_to_plane(uv, P, f, c, plane_z=4.0):
+    """Closed-form 3D points of pixels known to lie on z = plane_z."""
+    uv = np.asarray(uv, dtype=np.float64)
+    xn = (uv[:, 0] - c[0]) / f
+    yn = (uv[:, 1] - c[1]) / f
+    d_cam = np.stack([xn, yn, np.ones_like(xn)], axis=1)
+    R = P[:3, :3]
+    t = P[:3, 3]
+    center = -R.T @ t
+    d_world = d_cam @ R
+    s = (plane_z - center[2]) / d_world[:, 2]
+    return center[None, :] + s[:, None] * d_world
+
+
+def build_sequence(n_frames=33, size=(640, 480), f=500.0, plane_z=4.0,
+                   seed=7, ang_rate=0.05, vel=(1.2, 0.15, 0.2)):
+    """One agent's sequence: a camera that yaws by ``ang_rate`` rad and
+    translates by ``vel`` over the run.  Returns (imgs [n, H, W] f32,
+    P_list [n, 4, 4], f, size, plane_z)."""
+    rng = np.random.RandomState(seed)
+    tex = make_texture(rng)
+    P_list = []
+    for i in range(n_frames):
+        frac = i / max(n_frames - 1, 1)
+        ang = ang_rate * frac
+        ca, sa = np.cos(ang), np.sin(ang)
+        R = np.array([[ca, 0, sa], [0, 1, 0], [-sa, 0, ca]])
+        center = np.array(vel) * frac
+        P = np.eye(4)
+        P[:3, :3] = R
+        P[:3, 3] = -R @ center
+        P_list.append(P)
+    imgs = render_plane_sequence(np.stack(P_list), tex, size=size, f=f,
+                                 plane_z=plane_z)
+    return imgs, np.stack(P_list), f, size, plane_z
+
+
+def divergent_fleet_params(A, n_frames=33, size=(640, 480), f=500.0,
+                           plane_z=4.0):
+    """``build_sequence`` keyword sets of A INDEPENDENT agents (seeds
+    100 + a): distinct textures, turn rates and velocities."""
+    params = []
+    for a in range(A):
+        sgn = 1.0 if a % 2 == 0 else -1.0
+        params.append(dict(
+            n_frames=n_frames, size=size, f=f, plane_z=plane_z,
+            seed=100 + a, ang_rate=sgn * (0.03 + 0.015 * ((a * 7) % 5)),
+            vel=(sgn * (0.8 + 0.12 * (a % 4)), 0.1 + 0.02 * (a % 3),
+                 0.1 + 0.05 * ((a * 3) % 4))))
+    return params
+
+
+def build_divergent_fleet(A, n_frames=33, size=(640, 480), f=500.0,
+                          plane_z=4.0):
+    """The fleet as a list of ``build_sequence`` tuples (rendered one after
+    the other; a caller in a hurry maps ``divergent_fleet_params`` over a
+    process pool)."""
+    return [build_sequence(**kw) for kw in
+            divergent_fleet_params(A, n_frames, size, f, plane_z)]

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Where the port's main path spends a frame-group on the GPU.
+
+    python3 prof_torch_multi.py [--groups 3]
+
+Runs ``mqslam_tpu_torch``'s multi-agent runner at full width (16 divergent
+agents, 640x480, TrackerConfig() defaults, the fleet of ``chip_smoke.py``)
+under ``torch.profiler`` for a few frame-groups after a warm-up run, and
+prints one JSON object: wall time of the window with and without the
+profiler, the device's busy time and its idle share of the unprofiled wall
+time, kernel launches per frame-group, and the kernels that take the most
+device time.  Needs a CUDA device; imports only the port.
+"""
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+import chip_smoke
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--groups", type=int, default=3,
+                    help="frame-groups inside the profiled window")
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("prof_torch_multi: needs a CUDA device", file=sys.stderr)
+        return 1
+    from mqslam_tpu_torch import csrc
+    from mqslam_tpu_torch.frontend import tracker as trk
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device("cuda")
+    csrc.build_all()
+    n_warm = 4
+    seqs = chip_smoke.render_fleet(16, n_warm + args.groups + 1, (640, 480),
+                                   500.0)
+    config = trk.TrackerConfig()
+    cal, states, imgs = chip_smoke.bootstrap_fleet(seqs, config, device)
+    imgs = torch.as_tensor(imgs).to(device)
+    run = trk.make_multi_agent_runner(cal, config, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    states, _ = run(states, imgs[:, :n_warm + 1], generator=gen)
+    torch.cuda.synchronize()
+
+    def window():
+        """The same frame-groups from the same state and draws each time."""
+        g = torch.Generator(device=device).manual_seed(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, (acc, _, _) = run(states, imgs[:, n_warm:], generator=g)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, acc
+
+    # the profiler slows the host, and the host sets this path's pace: the
+    # idle share is taken against the window's wall time without it
+    wall_ms = min(window()[0], window()[0])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms, acc = window()
+
+    # device rows only: an operator row repeats its kernels' device time
+    from torch.autograd import DeviceType
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+            if dev_us(e) > 0 and e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    n_kernels = sum(r[2] for r in rows)
+    smi = chip_smoke.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    print(json.dumps({
+        "device": smi, "frame_groups": args.groups,
+        "keyframe_groups": int((acc == 2).any(dim=1).sum()),
+        "wall_ms_per_frame_group": wall_ms / args.groups,
+        "device_busy_ms_per_frame_group": busy_ms / args.groups,
+        "profiled_wall_ms_per_frame_group": profiled_wall_ms / args.groups,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_idle_share_under_profiler": 1.0 - busy_ms / profiled_wall_ms,
+        "device_ops_per_frame_group": n_kernels / args.groups,
+        "lk_level_device_ms_per_frame_group": sum(
+            us for k, us, _ in rows if "lk_level" in k) / 1e3 / args.groups,
+        "note": "wall_ms and device_idle_share: the window without the "
+                "profiler (best of 2); busy time: the profiled window",
+        "top": [{"name": k[:80], "device_ms_per_frame_group":
+                 us / 1e3 / args.groups, "calls_per_frame_group":
+                 c / args.groups} for k, us, c in rows[:args.top]],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
