@@ -4,15 +4,27 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
-``nvcc`` and nothing else; imports only ``mqslam_tpu_torch``.  It
+``nvcc``, PIL for the command-line phase, and nothing else; imports only
+``mqslam_tpu_torch``.  It
 
   1. builds every kernel under ``mqslam_tpu_torch/csrc/`` from source,
   2. holds each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, and times both beside the kernel's bound,
-  3. drives the main path — ``make_multi_agent_runner`` at full width: 16
-     divergent agents, 640x480, 33 frames, ``TrackerConfig()`` defaults —
-     with the launch counts set to 0 just before and read just after,
-  4. runs the port on the card against itself on the CPU at a small size.
+     shapes the paths below give it, and times both beside the kernel's
+     bound: the tile kernel (``lk_level``) at T = 6144 tracks on 16 tiles;
+     the strip kernel (``lk_strip``) at the single-agent path's own shapes in
+     float32 (a) and bfloat16 (b), and on the tile kernel's inputs with the
+     tracks shuffled and the corners made absolute (c), where it must also
+     agree with the tile kernel's own output,
+  3. drives the multi-agent path — ``make_multi_agent_runner`` at full
+     width: 16 divergent agents, 640x480, 33 frames, ``TrackerConfig()``
+     defaults — with the launch counts set to 0 just before and read just
+     after,
+  4. drives the single-agent path — ``run_frontend`` at full width: one
+     agent, 1280x720, 49 frames, the same defaults, BA data collected — the
+     same way, then the command line over PNG files in a temporary
+     directory, whose three outputs must match the in-memory run,
+  5. runs both paths on the card against themselves on the CPU at a small
+     size.
 
 Every phase must pass; the last line of the output is
 ``{"ok": true, "device": {...}}``.  One JSON object per line before it.
@@ -22,8 +34,10 @@ import concurrent.futures
 import json
 import multiprocessing
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -55,46 +69,89 @@ def require(cond, msg):
 
 # ----------------------------------------------------------------- inputs --
 
+SINGLE = dict(n_frames=49, size=(1280, 720), f=1000.0, plane_z=4.0, seed=7,
+              ang_rate=0.05, vel=(1.2, 0.15, 0.2), tex_scale=128.0)
+# the single agent: the fleet's camera at twice the width (focal length
+# scaled with it, and the texture scale, so a pixel sees what it saw at
+# 640x480)
+
+
 def _render_agent(args):
-    """One agent's sequence (runs in a worker process; NumPy only)."""
+    """One agent's sequence, or a slice of its frames (runs in a worker
+    process; NumPy only)."""
     from mqslam_tpu_torch.frontend import synthetic
     return synthetic.build_sequence(**args)
 
 
-def render_fleet(A, n_frames, size, f, plane_z=4.0, workers=8):
+def render_all(A, n_frames, size, f, plane_z=4.0, workers=8, single=None,
+               pieces=6):
     """``synthetic.build_divergent_fleet`` with the agents rendered in
-    parallel worker processes (the host-side long pole of this script)."""
+    parallel worker processes (the host-side long pole of this script) and,
+    with ``single``, one more agent's sequence rendered in ``pieces`` slices
+    of its frames beside them.  Returns (fleet, single sequence or None)."""
     from mqslam_tpu_torch.frontend import synthetic
     jobs = synthetic.divergent_fleet_params(A, n_frames, size, f, plane_z)
+    cuts = []
+    if single is not None:
+        n = single["n_frames"]
+        step = -(-n // pieces)
+        cuts = [slice(i, min(i + step, n)) for i in range(0, n, step)]
+        # the long jobs first
+        jobs = [dict(single, frames=c) for c in cuts] + jobs
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
-            max_workers=min(workers, A), mp_context=ctx) as pool:
-        return list(pool.map(_render_agent, jobs))
+            max_workers=min(workers, len(jobs)), mp_context=ctx) as pool:
+        out = list(pool.map(_render_agent, jobs))
+    if single is None:
+        return out, None
+    parts, fleet = out[:len(cuts)], out[len(cuts):]
+    seq = (np.concatenate([x[0] for x in parts]),
+           np.concatenate([x[1] for x in parts])) + parts[0][2:]
+    return fleet, seq
+
+
+def calibration(seq, device):
+    from mqslam_tpu_torch import convert
+    _, _, f, size, _ = seq
+    return convert.cal_from_numpy(
+        [f, f, 0.0, size[0] / 2, size[1] / 2, 0, 0, 0, 0], device=device)
+
+
+def init_correspondences(seq, device, n=128):
+    """Frame-0 2D-3D correspondences of a rendered sequence: corners from
+    the port's detector, 3D points by back-projection onto the known
+    plane."""
+    from mqslam_tpu_torch.frontend import synthetic
+    from mqslam_tpu_torch.ops import features
+    imgs, P_list, f, size, plane_z = seq
+    img0 = torch.as_tensor(imgs[0]).to(device)
+    uv, valid = features.detect_corners(img0, max_corners=160, cell=14)
+    uv = uv[valid][:n].cpu().numpy().astype(np.float32)
+    objp = synthetic.backproject_to_plane(
+        uv, P_list[0], f, (size[0] / 2, size[1] / 2), plane_z)
+    return uv, objp.astype(np.float32)
 
 
 def bootstrap_fleet(seqs, config, device):
-    """Each agent bootstrapped on its own first frame: corners from the
-    port's detector, 3D points by back-projection onto the known plane."""
-    from mqslam_tpu_torch import convert
-    from mqslam_tpu_torch.frontend import synthetic, tracker as trk
-    from mqslam_tpu_torch.ops import features
-
-    _, _, f, size, plane_z = seqs[0]
-    cal = convert.cal_from_numpy(
-        [f, f, 0.0, size[0] / 2, size[1] / 2, 0, 0, 0, 0], device=device)
+    """Each agent bootstrapped on its own first frame."""
+    from mqslam_tpu_torch.frontend import tracker as trk
+    cal = calibration(seqs[0], device)
     states = []
-    for imgs, P_list, *_ in seqs:
-        img0 = torch.as_tensor(imgs[0]).to(device)
-        uv, valid = features.detect_corners(img0, max_corners=160, cell=14)
-        uv = uv[valid][:128].cpu().numpy()
-        objp = synthetic.backproject_to_plane(
-            uv, P_list[0], f, (size[0] / 2, size[1] / 2), plane_z)
-        states.append(trk.bootstrap(uv.astype(np.float32),
-                                    objp.astype(np.float32), cal, imgs[0],
-                                    config, device=device))
+    for seq in seqs:
+        uv, objp = init_correspondences(seq, device)
+        states.append(trk.bootstrap(uv, objp, cal, seq[0][0], config,
+                                    device=device))
     stacked = trk.TrackerState(*(torch.stack(x) for x in zip(*states)))
     imgs = np.stack([s[0] for s in seqs])
     return cal, stacked, imgs
+
+
+def centre_errors(poses_c2w, P_gt):
+    """Distances between estimated camera centres (4x4 cam-to-world, None
+    for a rejected frame) and the known trajectory's (world-to-cam)."""
+    c_gt = -np.einsum("nji,nj->ni", P_gt[:, :3, :3], P_gt[:, :3, 3])
+    return np.array([np.linalg.norm(P[:3, 3] - c)
+                     for P, c in zip(poses_c2w, c_gt) if P is not None])
 
 
 # ---------------------------------------------------------------- kernels --
@@ -113,6 +170,34 @@ def time_ms(fn, reps=20, rounds=5, warmup=3):
         a.record()
         for _ in range(reps):
             fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def time_graph_ms(fn, reps=20, rounds=5):
+    """Device milliseconds per call with no host in the way: ``reps`` calls
+    captured into one CUDA graph (the wrapper launches on the capturing
+    stream and allocates its outputs from the graph's pool), the graph
+    replayed between one pair of events, median over ``rounds``.  For a
+    kernel shorter than the wrapper's host time (a few tens of microseconds)
+    this is the kernel's own time; ``time_ms`` then reads the host's launch
+    rate."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
         b.record()
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b) / reps)
@@ -143,22 +228,21 @@ def time_each_ms(fn, reps=20, warmup=1, flush=None):
     return statistics.median(out)
 
 
-def lk_level_bound(args, n_it):
+def lk_level_bound(imgJ, n_tracks, n_valid, win, hiX, want_err, n_it):
     """Least time for one level on these inputs: (ms, by, working).
 
     Bytes: every input read once, every output written once — the images
     count as the smaller of (the regions the valid tracks touch) and (both
-    atlas levels whole).  Operations: the lerps, gradients, structure
-    tensor, the Newton steps this input actually took, and the error."""
-    imgJ, _, cJ, _, _, _, valid, A, win, _, _, hiX, want_err = args
+    level images whole), at the bytes per pixel they are stored in.
+    Operations: the lerps, gradients, structure tensor, the Newton steps
+    this input actually took, and the error."""
     from mqslam_tpu_torch.ops import lk_tile
     P = lk_tile.search_side(win, hiX)
-    T = cJ.shape[0]
-    n_valid = int((valid != 0).sum())
-    region_b = n_valid * ((win + 3) ** 2 + P * P) * 4
-    atlas_b = 2 * imgJ.numel() * 4
-    io_b = T * (2 * 8 + 2 * 8 + 1 + 8 + 4 + 4)
-    nbytes = min(region_b, atlas_b) + io_b
+    px = imgJ.element_size()
+    region_b = n_valid * ((win + 3) ** 2 + P * P) * px
+    image_b = 2 * imgJ.numel() * px
+    io_b = n_tracks * (2 * 8 + 2 * 8 + 1 + 8 + 4 + 4)
+    nbytes = min(region_b, image_b) + io_b
     W2 = win + 2
     per_track = 3 * W2 * (W2 + 1) + 3 * W2 * W2 + 10 * win * win + 16
     per_iter = 14 * win * win + 12
@@ -166,19 +250,116 @@ def lk_level_bound(args, n_it):
              + int(n_it.sum()) * per_iter)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = flops / FP32_FLOP_PER_S * 1e3
-    working = dict(n_valid=n_valid, region_bytes=region_b,
-                   atlas_bytes=atlas_b, io_bytes=io_b, bytes=nbytes,
-                   flops=flops, newton_steps=int(n_it.sum()),
-                   bytes_ms=b_ms, operations_ms=o_ms)
+    working = dict(n_valid=n_valid, bytes_per_pixel=px,
+                   region_bytes=region_b, image_bytes=image_b,
+                   io_bytes=io_b, bytes=nbytes, flops=flops,
+                   newton_steps=int(n_it.sum()), bytes_ms=b_ms,
+                   operations_ms=o_ms)
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations"), \
         working
 
 
-def phase_kernels(states, imgs, config):
-    """K1 (lk_level) against its plain version at the main path's shapes:
-    the three level calls of one frame-group's LK, inputs recorded from
-    ``lk_track_pyr`` on two consecutive rendered frames, with inactive and
-    NaN-poisoned slots."""
+def record_level_calls(module, run):
+    """The argument lists ``run()`` hands to ``module.lk_level`` (the level
+    still runs)."""
+    recorded = []
+    real = module.lk_level
+
+    def recorder(*args, **kw):
+        recorded.append((args, kw["want_err"]))
+        return real(*args, **kw)
+
+    module.lk_level = recorder
+    try:
+        run()
+    finally:
+        module.lk_level = real
+    torch.cuda.synchronize()
+    return recorded
+
+
+def hold_level(kernel, plain, args, want_err, flush):
+    """One level call: the kernel against its plain version on the same
+    inputs, both timed, beside the bound.  ``args`` end in ``n_scalars``
+    scalars (..., win, iters, eps, hiX); the tensors before them are imgJ,
+    imgI, cJ, cI, aJ, a0, valid.  Returns (record, kernel outputs)."""
+    imgJ, a0, valid = args[0], args[5], args[6]
+    win, hiX = args[-4], args[-1]
+    a_k, eig_k, err_k = kernel(*args, want_err=want_err)
+    torch.cuda.synchronize()
+    a_p, eig_p, err_p, n_it = plain(*args, want_err=want_err,
+                                    return_iters=True)
+    ok = valid != 0
+    bad = ~ok
+    # skipped tracks: a0 passed through bit for bit (NaN included)
+    same = (a_k[bad] == a0[bad]) | (a_k[bad].isnan() & a0[bad].isnan())
+    require(bool(same.all()) and bool((eig_k[bad] == 0).all())
+            and bool((err_k[bad] == 0).all()),
+            "skipped tracks must return a0, 0, 0")
+    require(bool(torch.isfinite(a_k[ok]).all()), "non-finite anchors")
+    d_a = float((a_k[ok] - a_p[ok]).abs().max())
+    d_eig = float(((eig_k[ok] - eig_p[ok]).abs()
+                   / eig_p[ok].abs().clamp(min=1e-6)).max())
+    d_err = float((err_k[ok] - err_p[ok]).abs().max())
+    # Tolerances: the kernel sums the 441 window terms lane-strided and by
+    # warp shuffle, the plain version row by row, and nvcc contracts the
+    # lerps into FMAs — so b, G and err differ in the last bits, a Newton
+    # step by ~1e-4 px, and a track sitting at |step| = eps may take one
+    # step more or less (<= eps = 1e-2 px apart; 2e-3 holds in practice
+    # because the extra step is itself below eps and shrinks quadratically).
+    # bfloat16 images change nothing here: both sides widen the same stored
+    # pixels to float32 before any arithmetic.
+    require(d_a <= 2e-3, f"a_final differs by {d_a} px")
+    require(d_eig <= 1e-4, f"min_eig differs by {d_eig} (relative)")
+    require(d_err <= 1e-2, f"err differs by {d_err}")
+    bound_ms, by, working = lk_level_bound(
+        imgJ, int(valid.shape[0]), int(ok.sum()), win, hiX, want_err, n_it)
+    call = lambda fn: fn(*args, want_err=want_err)
+    ms = time_ms(lambda: call(kernel))
+    graph_ms = time_graph_ms(lambda: call(kernel))
+    cold_ms = time_each_ms(lambda: call(kernel), flush=flush)
+    plain_ms = time_each_ms(lambda: call(plain), reps=10)
+    rec = dict(
+        shape=[int(x) for x in imgJ.shape], dtype=str(imgJ.dtype)[6:],
+        T=int(valid.shape[0]), valid=int(ok.sum()), want_err=bool(want_err),
+        max_abs_err=d_a, min_eig_rel=d_eig, err_abs=d_err, ms=ms,
+        ms_graph=graph_ms, ms_l2_flushed=cold_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=by, bound_working=working)
+    log(f"{kernel.__module__.rsplit('.', 1)[-1]} {rec['shape']} "
+        f"{rec['dtype']} T={rec['T']}: kernel {ms:.4f} ms ({graph_ms:.4f} "
+        f"in a graph, {cold_ms:.4f} L2-flushed), plain {plain_ms:.2f} ms, "
+        f"bound {bound_ms:.4f} ms "
+        f"({by}), |da| {d_a:.2e}")
+    return rec, (a_k, eig_k, err_k)
+
+
+def sum_levels(levels):
+    """One record for the level calls of one LK call: times and bound
+    summed, errors at their worst."""
+    tot = lambda k: sum(l[k] for l in levels)
+    return dict(
+        max_abs_err=max(l["max_abs_err"] for l in levels), ms=tot("ms"),
+        ms_graph=tot("ms_graph"), ms_l2_flushed=tot("ms_l2_flushed"),
+        plain_ms=tot("plain_ms"),
+        bound_ms=tot("bound_ms"),
+        bound_by=max(levels, key=lambda l: l["bound_ms"])["bound_by"],
+        levels=levels)
+
+
+TIMING_NOTE = ("ms / plain_ms / bound_ms are sums over the three level "
+               "calls of one LK call; ms: 20 launches back to back, median "
+               "of 5 rounds; ms_graph: the same 20 launches replayed from "
+               "a CUDA graph (no host between them); ms_l2_flushed: median "
+               "of 20 single calls, plain_ms of 10; tolerances: a_final 2e-3 px, min_eig 1e-4 "
+               "relative, err 1e-2")
+
+
+def phase_kernel_tile(states, imgs, config, flush):
+    """K1 (lk_tile.lk_level) against its plain version at the multi-agent
+    path's shapes: the three level calls of one frame-group's LK, inputs
+    recorded from ``lk_track_pyr`` on two consecutive rendered frames, with
+    inactive and NaN-poisoned slots.  Returns (record, recorded calls, the
+    kernel's outputs per call)."""
     from mqslam_tpu_torch.ops import lk, lk_tile
 
     A, K = states.active.shape
@@ -188,85 +369,111 @@ def phase_kernels(states, imgs, config):
         torch.as_tensor(im).to(dev), config.lk_levels, pad=pad)]
     uv = states.cur_uv.clone()
     uv[~states.active] = float("nan")     # never-initialised slots
-    recorded = []
-    real = lk_tile.lk_level
-
-    def recorder(*args, **kw):
-        recorded.append(args + (kw["want_err"],))
-        return real(*args, **kw)
-
-    lk_tile.lk_level = recorder
-    try:
-        lk.lk_track_pyr(atlas(imgs[:, 0]), atlas(imgs[:, 1]),
-                        uv.reshape(A * K, 2), states.active.reshape(A * K),
-                        win=config.lk_win, prepad=True, atlas_tiles=A,
-                        atlas_contiguous=True)
-    finally:
-        lk_tile.lk_level = real
-    torch.cuda.synchronize()
+    recorded = record_level_calls(lk_tile, lambda: lk.lk_track_pyr(
+        atlas(imgs[:, 0]), atlas(imgs[:, 1]), uv.reshape(A * K, 2),
+        states.active.reshape(A * K), win=config.lk_win, prepad=True,
+        atlas_tiles=A, atlas_contiguous=True))
     require(len(recorded) == config.lk_levels, "expected one call per level")
-
-    levels = []
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
-    for args in recorded:
-        call = lambda fn: fn(*args[:-1], want_err=args[-1])
-        a_k, eig_k, err_k = call(lk_tile.lk_level)
-        torch.cuda.synchronize()
-        a_p, eig_p, err_p, n_it = lk_tile.lk_level_plain(
-            *args[:-1], want_err=args[-1], return_iters=True)
-        ok = args[6] != 0
-        bad = ~ok
-        # skipped tracks: a0 passed through bit for bit (NaN included)
-        same = (a_k[bad] == args[5][bad]) | (a_k[bad].isnan()
-                                             & args[5][bad].isnan())
-        require(bool(same.all()) and bool((eig_k[bad] == 0).all())
-                and bool((err_k[bad] == 0).all()),
-                "skipped tracks must return a0, 0, 0")
-        require(bool(torch.isfinite(a_k[ok]).all()), "non-finite anchors")
-        d_a = float((a_k[ok] - a_p[ok]).abs().max())
-        d_eig = float(((eig_k[ok] - eig_p[ok]).abs()
-                       / eig_p[ok].abs().clamp(min=1e-6)).max())
-        d_err = float((err_k[ok] - err_p[ok]).abs().max())
-        # Tolerances: the kernel sums the 441 window terms lane-strided and
-        # by warp shuffle, the plain version row by row, and nvcc contracts
-        # the lerps into FMAs — so b, G and err differ in the last bits, a
-        # Newton step by ~1e-4 px, and a track sitting at |step| = eps may
-        # take one step more or less (<= eps = 1e-2 px apart; 2e-3 holds in
-        # practice because the extra step is itself below eps and shrinks
-        # quadratically).
-        require(d_a <= 2e-3, f"a_final differs by {d_a} px")
-        require(d_eig <= 1e-4, f"min_eig differs by {d_eig} (relative)")
-        require(d_err <= 1e-2, f"err differs by {d_err}")
-        bound_ms, by, working = lk_level_bound(args, n_it)
-        ms = time_ms(lambda: call(lk_tile.lk_level))
-        cold_ms = time_each_ms(lambda: call(lk_tile.lk_level), flush=flush)
-        plain_ms = time_each_ms(lambda: call(lk_tile.lk_level_plain))
-        levels.append(dict(
-            shape=[int(x) for x in args[0].shape], T=int(args[2].shape[0]),
-            valid=int(ok.sum()), want_err=bool(args[-1]),
-            max_abs_err=d_a, min_eig_rel=d_eig, err_abs=d_err, ms=ms,
-            ms_l2_flushed=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-            bound_working=working))
-        log(f"lk_level {levels[-1]['shape']}: kernel {ms:.4f} ms "
-            f"({cold_ms:.4f} L2-flushed), plain "
-            f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({by}), "
-            f"|da| {d_a:.2e}")
-    tot = lambda k: sum(l[k] for l in levels)
-    return dict(
+    held = [hold_level(lk_tile.lk_level, lk_tile.lk_level_plain, args, we,
+                       flush) for args, we in recorded]
+    rec = dict(
         name="lk_level", route="cuda",
         source="mqslam_tpu_torch/csrc/lk_level.cu",
-        replaces="mqslam_tpu/ops/lk_tile_pallas.py:234",
-        launches=None, max_abs_err=max(l["max_abs_err"] for l in levels),
-        ms=tot("ms"), ms_l2_flushed=tot("ms_l2_flushed"),
-        plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
-        bound_by=max(levels, key=lambda l: l["bound_ms"])["bound_by"],
-        library_ms=None,
-        note="ms / plain_ms / bound_ms are sums over the three level calls "
-             "of one frame-group (T = 6144 tracks, 16 tiles); ms: 20 "
-             "launches back to back, median of 5 rounds; plain_ms and "
-             "ms_l2_flushed: median of 20 single calls; tolerances: "
-             "a_final 2e-3 px, min_eig 1e-4 relative, err 1e-2",
-        levels=levels)
+        replaces="mqslam_tpu/ops/lk_tile_pallas.py:234", launches=None,
+        library_ms=None, **sum_levels([h[0] for h in held]),
+        note=f"T = {A * K} tracks, {A} tiles; " + TIMING_NOTE)
+    return rec, recorded, [h[1] for h in held]
+
+
+def phase_kernel_strip(single, config, tile_calls, tile_outs, flush, device):
+    """K2 (lk_fused.lk_level) against its plain version at three inputs:
+    (a) the single-agent path's own level calls, recorded from
+    ``lk_track_pyr`` on its first frame pair with inactive and NaN-poisoned
+    slots, float32; (b) the same stored in bfloat16; (c) the tile kernel's
+    recorded calls with the tracks in a random order and the corners made
+    absolute, where it must also reproduce the tile kernel's own output.
+    On (a) the tile kernel with one tile is timed beside it."""
+    from mqslam_tpu_torch.frontend import tracker as trk
+    from mqslam_tpu_torch.ops import lk, lk_fused, lk_tile
+
+    cal = calibration(single, device)
+    uv0, objp = init_correspondences(single, device)
+    state = trk.bootstrap(uv0, objp, cal, single[0][0], config,
+                          device=device)
+    pad = lk.lk_pad(config.lk_win)
+    pyr = lambda im: lk.build_pyramid(torch.as_tensor(im).to(device),
+                                      config.lk_levels, pad=pad)
+    uv = state.cur_uv.clone()
+    uv[~state.active] = float("nan")
+    calls_a = record_level_calls(lk_fused, lambda: lk.lk_track_pyr(
+        pyr(single[0][0]), pyr(single[0][1]), uv, state.active,
+        win=config.lk_win, prepad=True))
+    require(len(calls_a) == config.lk_levels, "expected one call per level")
+    bf16 = lambda a: tuple(x.to(torch.bfloat16) for x in a[:2]) + a[2:]
+    calls_b = [(bf16(args), we) for args, we in calls_a]
+
+    # (c): K1's calls, scattered
+    gen = torch.Generator(device=device).manual_seed(1)
+    calls_c, perms = [], []
+    for args, we in tile_calls:
+        imgJ, imgI, cJ, cI, aJ, a0, valid, A = args[:8]
+        T = cJ.shape[0]
+        off = (torch.arange(T, device=device) // (T // A)).to(torch.int32) \
+            * (imgJ.shape[0] // A)
+        perm = torch.randperm(T, device=device, generator=gen)
+        row = lambda c: torch.stack([c[:, 0] + off, c[:, 1]], 1)[perm] \
+            .contiguous()
+        calls_c.append(((imgJ, imgI, row(cJ), row(cI), aJ[perm].contiguous(),
+                         a0[perm].contiguous(), valid[perm].contiguous())
+                        + args[8:], we))
+        perms.append(perm)
+
+    inputs = {}
+    for key, calls in (("a", calls_a), ("b", calls_b), ("c", calls_c)):
+        held = [hold_level(lk_fused.lk_level, lk_fused.lk_level_plain, args,
+                           we, flush) for args, we in calls]
+        inputs[key] = sum_levels([h[0] for h in held])
+        if key == "c":
+            # the same tracks through the other kernel: neither clamp binds
+            # on recorded inputs (corners lie inside their tile), so only
+            # the order of nothing differs — equal to 1e-5 px
+            worst = 0.0
+            for (args, _), perm, k2, k1 in zip(calls, perms,
+                                               [h[1] for h in held],
+                                               tile_outs):
+                ok = args[6] != 0
+                for x2, x1 in zip(k2, k1):
+                    worst = max(worst, float(
+                        (x2[ok] - x1[perm][ok]).abs().max()))
+            require(worst <= 1e-5, f"strip and tile kernels differ by "
+                                   f"{worst} on the same tracks")
+            inputs[key]["max_abs_diff_vs_tile_kernel"] = worst
+    # the tile kernel with ONE tile on input (a): what the auto rule passes
+    # over for a single image
+    for key, timer in (("ms", time_ms), ("ms_graph", time_graph_ms)):
+        inputs["a"]["tile_kernel_one_tile_" + key] = sum(
+            timer(lambda: lk_tile.lk_level(*args[:7], 1, *args[7:],
+                                           want_err=we))
+            for args, we in calls_a)
+    log("input (a), in a graph: strip {:.4f} ms, bf16 {:.4f} ms, tile "
+        "kernel A=1 {:.4f} ms".format(
+            inputs["a"]["ms_graph"], inputs["b"]["ms_graph"],
+            inputs["a"]["tile_kernel_one_tile_ms_graph"]))
+    a = inputs["a"]
+    return dict(
+        name="lk_strip", route="cuda",
+        source="mqslam_tpu_torch/csrc/lk_strip.cu",
+        replaces="mqslam_tpu/ops/lk_fused_pallas.py:278", launches=None,
+        max_abs_err=max(v["max_abs_err"] for v in inputs.values()),
+        ms=a["ms"], ms_graph=a["ms_graph"],
+        ms_l2_flushed=a["ms_l2_flushed"], plain_ms=a["plain_ms"],
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+        note="top-level numbers are input (a): T = "
+             f"{int(state.active.shape[0])} tracks on one "
+             f"{SINGLE['size'][0]}x{SINGLE['size'][1]} image, float32; "
+             "inputs.b the same in bfloat16, inputs.c the tile kernel's "
+             "T = 6144 atlas inputs shuffled; " + TIMING_NOTE,
+        inputs=inputs)
 
 
 # -------------------------------------------------------------- main path --
@@ -275,6 +482,11 @@ def camera_centers(rvec, tvec):
     from mqslam_tpu_torch.core import so3
     R = so3.exp(rvec)
     return -(R.transpose(-1, -2) @ tvec[..., None])[..., 0]
+
+
+def shares(stage_ms):
+    total = sum(stage_ms.values())
+    return {k: v / total for k, v in stage_ms.items()}
 
 
 def phase_main_path(cal, config, states, imgs, seqs, device):
@@ -338,22 +550,183 @@ def phase_main_path(cal, config, states, imgs, seqs, device):
         launches={"lk_level": launches}), launches
 
 
+def phase_single_agent(single, config, device, tile_launches_before):
+    """The single-agent path: ``run_frontend`` over the 1280x720 sequence
+    with BA data collected, launch counts zeroed just before and read just
+    after.  Returns (record, FrontendResult, strip-kernel launches)."""
+    from mqslam_tpu_torch import convert
+    from mqslam_tpu_torch.frontend.runner import run_frontend
+    from mqslam_tpu_torch.io import ba_info, pcd, tum
+    from mqslam_tpu_torch.ops import lk_fused, lk_tile
+
+    imgs, P_gt, *_ = single
+    n = len(imgs)
+    cal = calibration(single, device)
+    uv0, objp = init_correspondences(single, device)
+    gen = lambda: torch.Generator(device=device).manual_seed(0)
+    run = lambda **kw: run_frontend(          # timestamps as the CLI's
+        list(imgs), cal, config, uv0, objp, generator=gen(), t0=1.0 / 30.0,
+        device=device, **kw)
+
+    lk_fused.launches = 0
+    lk_tile.launches = 0
+    res = run(collect_ba=True)
+    torch.cuda.synchronize()
+    launches = lk_fused.launches
+    require(launches == config.lk_levels * (n - 1),
+            f"lk_strip launched {launches} times, expected "
+            f"{config.lk_levels * (n - 1)}")
+    require(lk_tile.launches == 0,
+            "the single-agent path launched the tile kernel")
+    lk_tile.launches = tile_launches_before
+    n_acc = sum(1 for a in res.accepted if a > 0)
+    require(n_acc >= 0.9 * n, f"accepted {n_acc} of {n} frames (< 90 %)")
+    require(res.n_keyframes >= 2, f"{res.n_keyframes} keyframes (< 2)")
+    err = centre_errors(res.poses, P_gt)
+    rmse = float(np.sqrt((err ** 2).mean()))
+    require(np.isfinite(res.points3d).all() and rmse < 0.05,
+            f"camera-centre RMSE {rmse} m vs ground truth")
+    require(len(res.trajectory.timestamps) == n_acc
+            and res.points3d.shape[1] == 3, "output shape")
+
+    # the dump through the port's writers and back: the same factor graph
+    # (floats to the 1e-6 the text formats keep)
+    with tempfile.TemporaryDirectory() as d:
+        ba_info.save_ba_data(d, "smoke", res.ba_data)
+        tum.save_trajectory(os.path.join(d, "traj_out.cam0-smoke.txt"),
+                            res.trajectory)
+        pcd.save_pcd(os.path.join(d, "map_out-smoke.pcd"), res.points3d)
+        back = ba_info.load_ba_data(d, "smoke", nr_cameras=1, fps=30)
+    compare_dumps(res.ba_data, back, skip=("point_colors",))
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run(collect_ba=True, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        require(r.accepted == res.accepted, "a repeated run changed results")
+        return dt
+
+    seconds = min(timed(), timed())
+    stage_ms = {}
+    timed(stage_ms=stage_ms)
+    log(f"single agent: {seconds:.3f} s for {n - 1} frames, "
+        f"{(n - 1) / seconds:.2f} frames/s; stage shares "
+        + ", ".join(f"{k} {v:.3f}" for k, v in shares(stage_ms).items()))
+    return dict(
+        agents=1, size=list(SINGLE["size"]), frames=n,
+        max_tracks=config.max_tracks, max_landmarks=config.max_landmarks,
+        ransac_hypotheses=config.ransac_hypotheses, accepted=n_acc,
+        keyframes=res.n_keyframes, landmarks=len(res.points3d),
+        ba_steps=res.ba_data.nr_steps,
+        ba_associations=int(sum(len(a) for a in
+                                res.ba_data.point2D3D_assocs[0])),
+        camera_centre_rmse_m=rmse, camera_centre_max_m=float(err.max()),
+        seconds=seconds, frames_per_s=(n - 1) / seconds,
+        stage_ms_per_frame={k: v / (n - 1) for k, v in stage_ms.items()},
+        stage_share=shares(stage_ms),
+        launches={"lk_strip": launches, "lk_level": 0}), res, launches
+
+
+def compare_dumps(a, b, skip=(), atol=1e-6):
+    """Two BAData hold the same factor graph (floats to ``atol``)."""
+    from mqslam_tpu_torch import convert
+    fa, fb = convert.flatten_ba_data(a), convert.flatten_ba_data(b)
+    for s in skip:
+        fa = {k: v for k, v in fa.items() if not k.startswith(s)}
+        fb = {k: v for k, v in fb.items() if not k.startswith(s)}
+    require(fa.keys() == fb.keys(),
+            f"dumps differ in structure: {sorted(set(fa) ^ set(fb))[:5]}")
+    for k in fa:
+        x, y = fa[k], fb[k]
+        same = x.shape == y.shape and (
+            np.allclose(x, y, atol=atol) if x.dtype.kind == "f"
+            else np.array_equal(x, y))
+        require(same, f"dumps differ at {k}")
+
+
+def phase_cli(single, res, device):
+    """The command line over files: the sequence as 8-bit PNGs with the
+    intrinsics, pose and point files in a temporary directory, through
+    ``cli.slam_run.main``; its three outputs against the in-memory run.
+
+    The rendered frames are floats and the files hold them rounded to 8
+    bits, so the two runs see slightly different images: frames accepted
+    must be equal, centres within 0.02 m, landmark count within 10 %."""
+    from PIL import Image
+    from mqslam_tpu_torch.cli import slam_run
+    from mqslam_tpu_torch.io import ba_info, intrinsics, pcd, tum
+
+    imgs, P_gt, f, size, _ = single
+    uv0, objp = init_correspondences(single, device)
+    with tempfile.TemporaryDirectory() as d:
+        frames = os.path.join(d, "frames")
+        os.makedirs(frames)
+        for i, im in enumerate(imgs):
+            Image.fromarray(np.clip(np.rint(im), 0, 255).astype(np.uint8)
+                            ).save(os.path.join(frames, f"frame-{i}.png"))
+        K = np.array([[f, 0, size[0] / 2], [0, f, size[1] / 2], [0, 0, 1]])
+        intr = os.path.join(d, "camera_intrinsics.txt")
+        intrinsics.save_camera_intrinsics(intr, K, np.zeros(5), size)
+        np.savetxt(os.path.join(d, "init_pose.txt"), P_gt[0])
+        pcd.save_pcd(os.path.join(d, "init_points.pcd"), objp)
+        out = os.path.join(d, "out")
+        traj_f = os.path.join(out, "traj_out.cam0-mqslam.txt")
+        map_f = os.path.join(out, "map_out-mqslam.pcd")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        rc = slam_run.main([
+            frames, intr, "--init-pose", os.path.join(d, "init_pose.txt"),
+            "--init-points", os.path.join(d, "init_points.pcd"),
+            "--traj-out", traj_f, "--map-out", map_f, "--ba-info-dir", out,
+            "--quiet"])
+        seconds = time.perf_counter() - t0
+        require(rc == 0, f"slam_run.main returned {rc}")
+        for path in (traj_f, map_f, os.path.join(
+                out, "BA_info.measurements.points2D.cam0-mqslam.txt")):
+            require(os.path.exists(path), f"missing output {path}")
+        traj = tum.load_trajectory(traj_f)
+        pts = pcd.load_pcd(map_f)[0]
+        dump = ba_info.load_ba_data(out, "mqslam", nr_cameras=1, fps=30)
+    n_acc = sum(1 for a in res.accepted if a > 0)
+    require(len(traj.timestamps) == n_acc,
+            f"CLI accepted {len(traj.timestamps)} frames, the in-memory run "
+            f"{n_acc}")
+    d_c = float(np.abs(traj.locations - res.trajectory.locations).max())
+    require(d_c < 0.02, f"CLI trajectory differs by {d_c} m")
+    require(abs(len(pts) - len(res.points3d)) <= 0.1 * len(res.points3d),
+            f"CLI map has {len(pts)} points, the in-memory run "
+            f"{len(res.points3d)}")
+    require(dump.nr_steps == res.ba_data.nr_steps
+            and len(dump.points3D) == len(pts), "CLI dump shape")
+    return dict(frames=len(imgs), accepted=len(traj.timestamps),
+                landmarks=len(pts), seconds_with_png_decoding=seconds,
+                centre_max_abs_diff_vs_in_memory_m=d_c)
+
+
 def phase_cuda_vs_cpu(device):
-    """The port on the card against itself on the CPU: A = 2, 320x240,
-    128 tracks, 6 frames, the same injected RANSAC draws."""
+    """The port on the card against itself on the CPU, the same injected
+    RANSAC draws: the multi-agent runner (A = 2, 320x240, 128 tracks, 6
+    frames) and the single-agent ``run_frontend`` on agent 0's sequence."""
     from mqslam_tpu_torch.frontend import tracker as trk
+    from mqslam_tpu_torch.frontend.runner import run_frontend
 
     config = trk.TrackerConfig(max_tracks=128, target_keypoints=100)
-    seqs = render_fleet(2, 6, (320, 240), 250.0, workers=2)
+    seqs, _ = render_all(2, 6, (320, 240), 250.0, workers=2)
     scores = np.random.RandomState(0).uniform(
         size=(5, 2, config.ransac_hypotheses, config.max_tracks)
     ).astype(np.float32)
-    res = {}
+    res, single = {}, {}
     for dev in ("cpu", device):
         cal, states, imgs = bootstrap_fleet(seqs, config, dev)
         run = trk.make_multi_agent_runner(cal, config, device=dev)
         _, outs = run(states, imgs, ransac_scores=scores)
         res[str(dev)] = [x.cpu().numpy() for x in outs]
+        uv0, objp = init_correspondences(seqs[0], dev)
+        single[str(dev)] = run_frontend(
+            list(seqs[0][0]), cal, config, uv0, objp,
+            ransac_scores=scores[:, 0], device=dev)
     (acc_c, rv_c, tv_c), (acc_g, rv_g, tv_g) = res["cpu"], res[str(device)]
     require((acc_c == acc_g).all(), f"accepted differs: {acc_c} vs {acc_g}")
     require((acc_c > 0).all(), f"rejected frames on the clean pair: {acc_c}")
@@ -362,9 +735,18 @@ def phase_cuda_vs_cpu(device):
     # same arithmetic; the kernel's sums run in another order than the
     # plain version's, and RANSAC picks the same sets from the same draws
     require(d_t <= 2e-3 and d_r <= 2e-3, f"poses differ: {d_t}, {d_r}")
+    s_c, s_g = single["cpu"], single[str(device)]
+    require(s_c.accepted == s_g.accepted and all(s_g.accepted),
+            f"single agent: accepted differs: {s_c.accepted} vs "
+            f"{s_g.accepted}")
+    d_p = float(max(np.abs(a - b).max()
+                    for a, b in zip(s_c.poses, s_g.poses)))
+    require(d_p <= 2e-3, f"single agent: poses differ by {d_p}")
     return dict(agents=2, size=[320, 240], frames=6,
                 accepted=acc_g.tolist(), tvec_max_abs_diff=d_t,
-                rvec_max_abs_diff=d_r, atol=2e-3)
+                rvec_max_abs_diff=d_r, atol=2e-3,
+                single_agent=dict(accepted=s_g.accepted,
+                                  pose_max_abs_diff=d_p, atol=2e-3))
 
 
 def main():
@@ -382,10 +764,11 @@ def main():
         timeout=60).stdout.strip().splitlines()
     smi = smi[0].strip() if smi else "unknown"
 
-    log("rendering the 16-agent fleet (host, NumPy) while nvcc runs")
+    log("rendering the 16-agent fleet and the single agent (host, NumPy) "
+        "while nvcc runs")
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
         build = ex.submit(csrc.build_all)
-        seqs = render_fleet(16, 33, (640, 480), 500.0)
+        seqs, single = render_all(16, 33, (640, 480), 500.0, single=SINGLE)
         logs = build.result()
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
@@ -400,14 +783,26 @@ def main():
     try:
         log("bootstrapping 16 agents")
         cal, states, imgs = bootstrap_fleet(seqs, config, device)
-        log("phase kernels")
-        k1 = phase_kernels(states, imgs, config)
-        log("phase main_path")
-        main_path, launches = phase_main_path(cal, config, states, imgs,
-                                              seqs, device)
-        k1["launches"] = launches
-        emit({"kernels": [k1]})
+        flush = torch.empty(64 << 20, dtype=torch.float32,
+                            device=device)                       # 256 MB
+        log("phase kernels: tile")
+        k1, tile_calls, tile_outs = phase_kernel_tile(states, imgs, config,
+                                                      flush)
+        log("phase kernels: strip")
+        k2 = phase_kernel_strip(single, config, tile_calls, tile_outs, flush,
+                                device)
+        del flush, tile_calls, tile_outs
+        log("phase main_path (16 agents)")
+        main_path, k1["launches"] = phase_main_path(cal, config, states,
+                                                    imgs, seqs, device)
+        log("phase single_agent")
+        single_agent, res, k2["launches"] = phase_single_agent(
+            single, config, device, k1["launches"])
+        emit({"kernels": [k1, k2]})
         emit({"main_path": main_path})
+        emit({"single_agent": single_agent})
+        log("phase cli")
+        emit({"cli": phase_cli(single, res, device)})
         log("phase cuda_vs_cpu")
         emit({"cuda_vs_cpu": phase_cuda_vs_cpu(device)})
     except PhaseFailed as e:

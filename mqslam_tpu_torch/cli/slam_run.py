@@ -1,0 +1,156 @@
+"""Headless SLAM front-end runner: image directory -> TUM trajectory + PCD map
+(+ optional BA_info dump).
+
+CLI role of the reference's slam2 main (reference: Work/SLAM/application/own/
+slam2.py:868-1018 argument surface, :1021-1253 main loop) and of the headless
+SVO runner (Work/SLAM/application/SVO/run_pipeline.cpp:266-309).
+
+    python -m mqslam_tpu_torch.cli.slam_run IMG_DIR camera_intrinsics.txt \\
+        --init-pose init_pose.txt --init-points init_points.pcd \\
+        --ba-info-dir OUT [--device cuda|cpu]
+"""
+
+import argparse
+import sys
+
+import numpy as np
+
+# options of the argument surface whose modules this package does not have
+# yet: (flag, what it needs)
+_NOT_PORTED = (
+    ("init_chessboard", "--init-chessboard", "ops/chessboard.py and "
+                                             "calib/zhang.py"),
+    ("loop_closure", "--loop-closure", "ops/orb.py, frontend/loopclosure.py "
+                                       "and ba/posegraph.py"),
+    ("checkpoint", "--checkpoint", "frontend/checkpoint.py"),
+    ("resume", "--resume", "frontend/checkpoint.py"),
+    ("debug_dir", "--debug-dir", "viz/painter.py"),
+)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("img_dir", help="directory with the image sequence")
+    ap.add_argument("cam_intrinsics_file",
+                    help="camera_intrinsics.txt (reference wire format)")
+    ap.add_argument("--init-pose", dest="init_pose", default=None,
+                    help="init_pose.txt: 4x4 extrinsic matrix (the "
+                         "reference's np.loadtxt format, slam2.py:1054) or "
+                         "a TUM line with the first pose")
+    ap.add_argument("--init-points", dest="init_points", default=None,
+                    help="init_points.pcd with known 3D points visible in "
+                         "frame 0")
+    ap.add_argument("--traj-out", default="traj_out.cam0-mqslam.txt")
+    ap.add_argument("--map-out", default="map_out-mqslam.pcd")
+    ap.add_argument("--ba-info-dir", default=None,
+                    help="directory to write the BA_info.* dump into")
+    ap.add_argument("--ba-name", default="mqslam")
+    ap.add_argument("--fps", type=float, default=30.0)
+    ap.add_argument("--max-frames", type=int, default=0)
+    ap.add_argument("--max-tracks", type=int, default=384)
+    ap.add_argument("--target-keypoints", type=int, default=300)
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default: the CUDA device; "
+                         "'cpu' runs on the CPU)")
+    ap.add_argument("--init-chessboard", default=None, metavar="COLSxROWS",
+                    help="bootstrap from a chessboard visible in frame 0 "
+                         "(not ported yet)")
+    ap.add_argument("--square-size", type=float, default=1.0,
+                    help="chessboard square size in world units")
+    ap.add_argument("--loop-closure", action="store_true",
+                    help="ORB loop-closure + pose-graph correction (not "
+                         "ported yet)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="checkpoint file (not ported yet)")
+    ap.add_argument("--checkpoint-every", type=int, default=30)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint (not ported yet)")
+    ap.add_argument("--debug-dir", default=None,
+                    help="Composite 2D/3D debug views (not ported yet)")
+    ap.add_argument("--debug-every", type=int, default=10)
+    ap.add_argument("--quiet", action="store_true")
+    args = ap.parse_args(argv)
+
+    for attr, flag, needs in _NOT_PORTED:
+        if getattr(args, attr):
+            print(f"{flag} is not ported yet: it needs {needs}, which "
+                  "mqslam_tpu_torch does not have", file=sys.stderr)
+            return 2
+
+    import torch
+    from mqslam_tpu_torch import convert, resolve_device
+    from mqslam_tpu_torch.core import camera as cam_mod
+    from mqslam_tpu_torch.frontend import tracker as trk
+    from mqslam_tpu_torch.frontend.runner import run_frontend
+    from mqslam_tpu_torch.io import images, intrinsics, pcd, tum, ba_info
+
+    device = resolve_device(args.device)
+    K, dist, size = intrinsics.load_camera_intrinsics(
+        args.cam_intrinsics_file)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(device)
+    cal = convert.cal_from_K_dist(K, dist, device=device)
+    paths = images.image_filepaths_by_directory(args.img_dir)
+    if args.max_frames:
+        paths = paths[:args.max_frames]
+    if not paths:
+        print(f"No images found in {args.img_dir}", file=sys.stderr)
+        return 1
+    if not args.quiet:
+        print(f"{len(paths)} frames; intrinsics fx={K[0,0]:.2f} "
+              f"fy={K[1,1]:.2f}; device {device}")
+
+    if not (args.init_pose and args.init_points):
+        print("Provide --init-pose/--init-points (predefined-points "
+              "bootstrap, svo_initialization.py).", file=sys.stderr)
+        return 1
+    # init pose + init 3D points; project to get frame-0 2D points.
+    # init_pose.txt is either a plain 4x4 world->cam extrinsic matrix
+    # (slam2.py:1054-1060 loads it with np.loadtxt) or a TUM line.
+    raw = np.loadtxt(args.init_pose)
+    if raw.shape == (4, 4):
+        P0 = raw
+    else:
+        init = tum.load_trajectory(args.init_pose)
+        P0 = tum.extrinsics_from_trajectory(init)[0]
+    pts3d, _, _ = pcd.load_pcd(args.init_points)
+    uv0, depth = cam_mod.project(f32(pts3d), f32(P0), cal)
+    uv0, depth = uv0.cpu().numpy(), depth.cpu().numpy()
+    # visibility filter: in front of the camera AND inside the image
+    # (transforms.py:200-226 project_points status; slam2.py:1058-1060)
+    w, h = int(size[0]), int(size[1])
+    ok = ((depth > 0)
+          & (uv0[:, 0] >= 0) & (uv0[:, 0] < w)
+          & (uv0[:, 1] >= 0) & (uv0[:, 1] < h))
+    uv0 = uv0[ok]
+    pts3d = pts3d[ok]
+    if not args.quiet:
+        print(f"init: {ok.sum()}/{len(ok)} predefined points visible "
+              f"in frame 0")
+
+    config = trk.TrackerConfig(max_tracks=args.max_tracks,
+                               target_keypoints=args.target_keypoints)
+    res = run_frontend((images.load_image_gray(p) for p in paths),
+                       cal, config, uv0.astype(np.float32),
+                       pts3d.astype(np.float32), fps=args.fps,
+                       generator=torch.Generator(device=device).manual_seed(0),
+                       collect_ba=args.ba_info_dir is not None,
+                       verbose=not args.quiet, t0=1.0 / args.fps,
+                       device=device)
+
+    tum.save_trajectory(args.traj_out, res.trajectory)
+    gray = np.clip(res.point_colors, 0, 255).astype(np.uint8)
+    colors = np.stack([gray, gray, gray], axis=1)
+    pcd.save_pcd(args.map_out, res.points3d, colors)
+    if args.ba_info_dir:
+        ba_info.save_ba_data(args.ba_info_dir, args.ba_name, res.ba_data)
+    n_acc = sum(1 for a in res.accepted if a > 0)
+    print(f"done: {n_acc}/{len(res.accepted)} frames accepted, "
+          f"{res.n_keyframes} keyframes, {len(res.points3d)} landmarks -> "
+          f"{args.traj_out}, {args.map_out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

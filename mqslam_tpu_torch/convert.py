@@ -2,6 +2,9 @@
 
 The port never sees a JAX object: a caller turns the JAX ``TrackerState`` /
 calibration into NumPy (``np.asarray`` per field) and hands the dict here.
+``flatten_ba_data`` goes the other way for comparisons: it reads attributes
+only, so it takes this package's ``io.ba_info.BAData`` and any object of the
+same shape.
 """
 
 import dataclasses
@@ -10,11 +13,12 @@ import numpy as np
 import torch
 
 from mqslam_tpu_torch import resolve_device
+from mqslam_tpu_torch.core import camera
 from mqslam_tpu_torch.core.camera import Cal3DS2
 from mqslam_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
 
-__all__ = ["cal_from_numpy", "config_from_jax", "state_from_numpy",
-           "state_to_numpy"]
+__all__ = ["cal_from_numpy", "cal_from_K_dist", "config_from_jax",
+           "state_from_numpy", "state_to_numpy", "flatten_ba_data"]
 
 _DTYPES = {
     "base_uv": torch.float32, "cur_uv": torch.float32,
@@ -32,6 +36,15 @@ def cal_from_numpy(arr9, device=None):
     device = resolve_device(device)
     a = torch.as_tensor(np.asarray(arr9, dtype=np.float32)).to(device)
     return Cal3DS2.from_array(a)
+
+
+def cal_from_K_dist(K, dist=None, device=None):
+    """Cal3DS2 from a NumPy 3x3 K and distortion coefficients
+    (k1, k2, p1, p2[, k3]), as ``io.intrinsics`` loads them."""
+    device = resolve_device(device)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(device)
+    return camera.cal_from_K_dist(f32(K), None if dist is None
+                                  else f32(dist))
 
 
 def config_from_jax(cfg):
@@ -58,3 +71,31 @@ def state_from_numpy(fields, device=None):
 def state_to_numpy(state: TrackerState):
     """{field: ndarray} of a TrackerState (host copy)."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def flatten_ba_data(data):
+    """{path: ndarray} of everything in a BAData-shaped object: each field,
+    list entry by list entry (``"poses[0][3][1]"``), noise models as their
+    kind / dim / sigmas, holes (None) as empty arrays under ``path + "?"``.
+    Two dumps hold the same factor graph when their flattenings have equal
+    keys and equal arrays."""
+    out = {}
+
+    def walk(path, x):
+        if x is None:
+            out[path + "?"] = np.zeros(0)
+        elif hasattr(x, "sigmas"):
+            out[path + ".kind"] = np.asarray(x.kind)
+            out[path + ".dim"] = np.asarray(x.dim)
+            out[path + ".sigmas"] = np.asarray(x.sigmas, np.float64)
+        elif isinstance(x, (list, tuple)) and not (
+                x and all(np.isscalar(v) for v in x)):
+            out[path + "#"] = np.asarray(len(x))
+            for i, v in enumerate(x):
+                walk(f"{path}[{i}]", v)
+        else:
+            out[path] = np.asarray(x)
+
+    for f in dataclasses.fields(data):
+        walk(f.name, getattr(data, f.name))
+    return out

@@ -16,7 +16,7 @@ import torch
 from mqslam_tpu_torch.core import smallmat
 
 __all__ = [
-    "Cal3DS2", "normalize_points", "denormalize_points",
+    "Cal3DS2", "K_from_cal", "cal_from_K_dist", "normalize_points", "denormalize_points",
     "distort_normalized", "undistort_normalized", "undistort_points",
     "project", "project_normalized", "projection_depth",
 ]
@@ -44,6 +44,29 @@ class Cal3DS2(NamedTuple):
 
     def to(self, device):
         return Cal3DS2(*(x.to(device) for x in self))
+
+
+def K_from_cal(cal: Cal3DS2):
+    """3x3 intrinsic matrix from a Cal3DS2."""
+    z = torch.zeros_like(cal.fx)
+    o = torch.ones_like(cal.fx)
+    K = torch.stack([cal.fx, cal.s, cal.u0,
+                     z, cal.fy, cal.v0,
+                     z, z, o], dim=-1)
+    return K.reshape(K.shape[:-1] + (3, 3))
+
+
+def cal_from_K_dist(K, dist=None):
+    """Cal3DS2 from a 3x3 K and OpenCV distortion coeffs (k1,k2,p1,p2[,k3]).
+
+    k3 (if present) is dropped — the Cal3DS2 model has no 6th-order radial
+    term."""
+    if dist is None:
+        dist = torch.zeros(K.shape[:-2] + (4,), dtype=K.dtype,
+                           device=K.device)
+    k1, k2, p1, p2 = dist[..., 0], dist[..., 1], dist[..., 2], dist[..., 3]
+    return Cal3DS2(K[..., 0, 0], K[..., 1, 1], K[..., 0, 1],
+                   K[..., 0, 2], K[..., 1, 2], k1, k2, p1, p2)
 
 
 def normalize_points(uv, cal: Cal3DS2):

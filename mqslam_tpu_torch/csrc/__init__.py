@@ -3,6 +3,7 @@
 Each ``<name>.cu`` in this directory has a plain C interface and is compiled
 on its own with ``nvcc`` for ``sm_90a`` into a shared library under
 ``mqslam_tpu_torch/_build/`` (ignored by git), then loaded with ``ctypes``.
+Device code that kernels share lives in ``*.cuh`` headers beside them.
 The build happens at first use, from the sources here only; ``build_all``
 starts one ``nvcc`` per source in parallel so a cold start costs the slowest
 single file.  Nothing here is imported at module-import time by the CPU
@@ -48,11 +49,16 @@ def _nvcc():
 
 
 def _target(name):
+    """(source, library path); the library's name carries a digest of the
+    source, every shared header and the compiler flags."""
     src = os.path.join(SRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    headers = sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                     if f.endswith(".cuh"))
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + headers:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build_all(names=None):

@@ -1,0 +1,314 @@
+"""Host loop around the tracker step: IO, trajectory, BA-info export.
+
+The device does all per-frame compute (frontend.tracker.make_step); this loop
+only feeds images and keeps the factor-graph bookkeeping the reference's
+BundleAdjustmentInfoContainer did (reference: Work/SLAM/application/own/
+slam2.py:743-865 writer, :1203-1253 main loop). Rejected frames are dropped
+entirely — the next flow starts from the last accepted image and the
+trajectory keeps a hole (slam2.py:1221-1225).
+
+Every read of a device value makes the host wait for the device, so what the
+loop needs of a frame comes back in ONE transfer (``_fetch``); each frame
+pays one pyramid build (the previous frame's pyramid is kept).
+"""
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from mqslam_tpu_torch import resolve_device
+from mqslam_tpu_torch.core import camera as cam_mod, se3
+from mqslam_tpu_torch.frontend import tracker as trk
+from mqslam_tpu_torch.io import ba_info as ba_io, pcd as pcd_mod, tum
+from mqslam_tpu_torch.io.nputil import matrix_to_quat_np
+from mqslam_tpu_torch.ops import lk
+
+__all__ = ["FrontendResult", "run_frontend"]
+
+
+@dataclass
+class FrontendResult:
+    trajectory: "tum.CamTrajectory"        # accepted frames only
+    poses: List[Optional[np.ndarray]]      # per frame 4x4 cam-to-world | None
+    points3d: np.ndarray                   # [P, 3]
+    point_colors: np.ndarray               # [P] intensity
+    point_groups: np.ndarray               # [P]
+    ba_data: Optional[ba_io.BAData]
+    n_keyframes: int
+    accepted: List[int]                    # per-frame 0/1/2
+    loop_edges: List[tuple] = field(default_factory=list)
+    # always empty: loop closure is not ported yet
+
+
+def _cam_to_world(rvec, tvec):
+    """4x4 cam-to-world from a world->cam (rvec, tvec); host arithmetic."""
+    as_cpu = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    return se3.inv(se3.from_rvec_tvec(as_cpu(rvec), as_cpu(tvec))).numpy()
+
+
+def _trajectory(poses, fps, t0):
+    """TUM trajectory of the accepted frames (frame i at ``t0 + i / fps``)."""
+    ts, locs, quats = [], [], []
+    for i, P in enumerate(poses):
+        if P is None:
+            continue
+        ts.append(t0 + i / fps)
+        locs.append(P[:3, 3])
+        quats.append(matrix_to_quat_np(P[:3, :3]))
+    return tum.CamTrajectory(np.asarray(ts),
+                             np.asarray(locs).reshape(-1, 3),
+                             np.asarray(quats).reshape(-1, 4))
+
+
+def _fetch(out):
+    """Every field of a NamedTuple of tensors as NumPy arrays of the same
+    shapes, moved to the host in one transfer (one wait for the device)."""
+    flat = [x.reshape(-1).contiguous() for x in out]
+    buf = torch.cat([x.view(torch.uint8) for x in flat]).cpu().numpy()
+    fields, pos = [], 0
+    for x, f in zip(out, flat):
+        n = f.numel() * f.element_size()
+        dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
+        fields.append(buf[pos:pos + n].view(dtype).reshape(tuple(x.shape)))
+        pos += n
+    return type(out)(*fields)
+
+
+def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
+                 init_uv, init_objp, fps: float = 30.0, generator=None,
+                 ransac_scores=None, collect_ba: bool = True,
+                 verbose: bool = False, live_update_period: int = 0,
+                 traj_out_file: str = None, map_out_file: str = None,
+                 loop_closure: bool = False, t0: float = 0.0,
+                 checkpoint_every: int = 0, checkpoint_path: str = None,
+                 resume_from: str = None, debug_dir: str = None,
+                 device=None, stage_ms=None):
+    """Run the front-end over a grayscale image sequence.
+
+    images: iterable of [H, W] float arrays (0..255). init_uv/init_objp:
+    frame-0 2D-3D correspondences (chessboard grid or predefined points,
+    slam2.py:1121-1146). With ``live_update_period`` > 0 and output paths
+    set, the trajectory + map are flushed every N frames — the reference's
+    live Blender-viewer hook (slam2.py:1244-1248, blender_tools.py:501-596
+    polls these files).
+
+    ``t0`` is the timestamp of frame 0; the reference convention is
+    t0 = 1/fps (dataset_tools.py:275-294 convert_cam_poses_to_cam_trajectory
+    "Timestamp of first pose starts at 1.0 / fps"), which the CLI uses so
+    trajectories associate with the ICL-NUIM/SVO ground-truth files.
+
+    ``device=None`` is the CUDA device (raises without one); pass ``"cpu"``
+    to run there.  The RANSAC draws are explicit: ``ransac_scores``
+    [n_frames - 1, n_hyp, K] (frame i uses row i - 1) or a
+    ``torch.Generator`` on the device; with neither, torch's global
+    generator draws.  ``stage_ms`` (a dict) receives accumulated milliseconds
+    per stage; asking for it synchronizes after every stage.
+
+    Not ported yet, and refused rather than ignored: ``loop_closure`` (needs
+    ops/orb, frontend/loopclosure, ba/posegraph), ``checkpoint_every`` /
+    ``checkpoint_path`` / ``resume_from`` (frontend/checkpoint) and
+    ``debug_dir`` (viz/painter).
+    """
+    for asked, missing in (
+            (loop_closure, "loop_closure needs ops/orb.py, "
+                           "frontend/loopclosure.py and ba/posegraph.py"),
+            (checkpoint_every or checkpoint_path or resume_from,
+             "checkpoints need frontend/checkpoint.py"),
+            (debug_dir, "debug views need viz/painter.py")):
+        if asked:
+            raise NotImplementedError(
+                f"run_frontend: {missing}, which mqslam_tpu_torch does not "
+                "have yet")
+    device = resolve_device(device)
+    cal = cal.to(device)
+    _, refill_kf, step_pyr = trk.make_step(cal, config, device)
+    pad = lk.lk_pad(config.lk_win)
+    clock = trk.StageClock(stage_ms, device)
+
+    def to_device(img):
+        return torch.as_tensor(np.asarray(img, dtype=np.float32)).to(device)
+
+    def pyramid(img_dev):
+        return lk.build_pyramid(img_dev, config.lk_levels, pad=pad)
+
+    images = iter(images)
+    first = np.asarray(next(images), dtype=np.float32)
+    with torch.no_grad():
+        state = trk.bootstrap(init_uv, init_objp, cal, first, config,
+                              device=device)
+        prev_pyr = pyramid(to_device(first))
+    state0 = _fetch(state)
+    poses = [_cam_to_world(state0.rvec, state0.tvec)]
+    accepted_flags = [2]
+    n_init = len(init_uv)
+
+    # --- BA bookkeeping ---
+    data = ba_io.BAData(nr_cameras=1) if collect_ba else None
+    # tracking history: frames since last keyframe (inclusive), as
+    # (frame_idx, uv [K,2], alive [K], compact_index [K])
+    history = []
+
+    def frame_2d_list(uv, alive):
+        """Compact per-frame 2D list + slot->list-index map."""
+        idxs = np.flatnonzero(alive)
+        comp = -np.ones(len(alive), dtype=np.int64)
+        comp[idxs] = np.arange(len(idxs))
+        return uv[idxs], comp
+
+    if collect_ba:
+        data.pose_noise = [ba_io.NoiseModel.diagonal(
+            [0.002] * 3 + [0.001] * 3)]
+        data.odometry_noise = [[ba_io.NoiseModel.diagonal(
+            [0.05] * 3 + [0.2] * 3)]]
+        data.point3D_noise = ba_io.NoiseModel.isotropic(3, 0.2)
+        data.point2D_noise = [ba_io.NoiseModel.isotropic(2, 1.0)]
+        data.calibrations = [cal.as_array().cpu().numpy().astype(np.float64)]
+
+        uv0 = state0.cur_uv
+        alive0 = state0.active
+        uv_list, comp = frame_2d_list(uv0, alive0)
+        data.points2D = [[uv_list]]
+        tri0 = state0.triangulated & alive0
+        oidx0 = state0.objp_idx
+        assoc0 = np.stack([np.zeros(tri0.sum(), np.int64),
+                           comp[np.flatnonzero(tri0)],
+                           oidx0[np.flatnonzero(tri0)]], axis=1)
+        data.point2D3D_assocs = [[assoc0]]
+        data.point3D_added_idxs = [list(range(n_init))]
+        data.odometry = [[]]
+        data.odometry_assocs = [[]]
+        history.append((0, uv0, alive0, comp))
+        last_kf_frame = 0
+
+    frame_idx = 0
+    for img in images:
+        frame_idx += 1
+        clock.mark()
+        with torch.no_grad():
+            new_img = to_device(img)
+            new_pyr = pyramid(new_img)
+            clock.mark("pyramid")
+            sc = None if ransac_scores is None else \
+                torch.as_tensor(ransac_scores[frame_idx - 1]).to(device)
+            state, out_dev = step_pyr(state, prev_pyr, new_pyr, sc,
+                                      generator, clock=clock)
+            out = _fetch(out_dev)
+        acc = int(out.accepted)
+        accepted_flags.append(acc)
+        if collect_ba:
+            data.points2D[0].append(np.zeros((0, 2)))
+            data.point2D3D_assocs[0].append(np.zeros((0, 3), np.int64))
+            data.point3D_added_idxs.append([])
+            data.odometry.append([])
+            data.odometry_assocs.append([])
+
+        if acc == 0:
+            poses.append(None)
+            if verbose:
+                why = {1: "lost-tracks", 2: "too-few-triangulated",
+                       3: "pnp-outlier-ratio", 4: "reprojection-rms"}.get(
+                           int(out.reject_code), "?")
+                print(f"frame {frame_idx}: REJECTED ({why}, "
+                      f"lost_ratio={float(out.lost_ratio):.2f})")
+            clock.mark("host")
+            continue  # prev_pyr stays the last accepted image's
+
+        poses.append(_cam_to_world(out.rvec, out.tvec))
+        if collect_ba:
+            uv = out.cur_uv
+            alive = out.track_alive
+            uv_list, comp = frame_2d_list(uv, alive)
+            data.points2D[0][frame_idx] = uv_list
+            # tracked, already-triangulated associations (slam2.py:517-522)
+            inl = out.pnp_inlier & alive
+            oidx = out.objp_idx
+            sl = np.flatnonzero(inl & out.track_triangulated
+                                & ~out.new_landmarks)
+            assoc = np.stack([np.full(len(sl), frame_idx, np.int64),
+                              comp[sl], oidx[sl]], axis=1)
+            data.point2D3D_assocs[0][frame_idx] = assoc
+            history.append((frame_idx, uv, alive, comp))
+
+        if acc == 2:  # keyframe
+            if collect_ba:
+                new_slots = np.flatnonzero(out.new_landmarks)
+                data.point3D_added_idxs[frame_idx] = [
+                    int(oidx[s]) for s in new_slots]
+                # associations of the new landmarks for every frame since the
+                # last keyframe (slam2.py:633-641). They are introduced at
+                # THIS step (assoc list index = current step) but each row's
+                # frame field points at the historical frame — the
+                # add_points2D_3Dassoc semantics (slam2.py:777-783), which
+                # is also what keeps the incremental no-future-refs
+                # invariant (DataStructures.hpp:139,156-158).
+                rows = []
+                for (f_idx, uv_h, alive_h, comp_h) in history:
+                    for s in new_slots:
+                        if alive_h[s] and comp_h[s] >= 0:
+                            rows.append((f_idx, comp_h[s], oidx[s]))
+                if rows:
+                    data.point2D3D_assocs[0][frame_idx] = np.concatenate([
+                        data.point2D3D_assocs[0][frame_idx],
+                        np.asarray(rows, np.int64)], axis=0)
+                # odometry between previous and current keyframe
+                # (slam2.py:680-687): measured = W_prev^-1 W_cur
+                P_prev = poses[last_kf_frame]
+                P_cur = poses[frame_idx]
+                if P_prev is not None:
+                    odo = np.linalg.inv(P_prev) @ P_cur
+                    data.odometry[frame_idx] = [odo]
+                    data.odometry_assocs[frame_idx] = [
+                        (0, last_kf_frame, 0, frame_idx)]
+                last_kf_frame = frame_idx
+                history = [(frame_idx, uv, alive, comp)]
+            clock.mark("host")
+            with torch.no_grad():
+                state = refill_kf(state, new_img)
+            clock.mark("refill")
+
+        if verbose:
+            print(f"frame {frame_idx}: acc={acc} "
+                  f"tracks={int(out.n_tracks)} "
+                  f"H-cond={float(out.homography_condition):.3f}")
+        if (live_update_period and traj_out_file
+                and frame_idx % live_update_period == 0):
+            _write_live(state, poses, fps, traj_out_file, map_out_file,
+                        t0=t0)
+        prev_pyr = new_pyr
+        clock.mark("host")
+
+    # --- outputs ---
+    n_pts = int(state.n_objp)
+    points3d = state.objp[:n_pts].cpu().numpy()
+    colors = state.objp_color[:n_pts].cpu().numpy()
+    groups = state.objp_group[:n_pts].cpu().numpy()
+    traj = _trajectory(poses, fps, t0)
+    if collect_ba:
+        data.points3D = points3d.astype(np.float64)
+        gray = np.clip(colors, 0, 255).astype(np.uint8)
+        bgra = np.stack([gray, gray, gray,
+                         np.full(n_pts, 0xFD, np.uint8)], axis=1)
+        data.point_colors = np.ascontiguousarray(bgra).view(
+            np.float32).reshape(-1)
+        data.poses = [[(P, t0 + i / fps) if P is not None else None
+                       for i, P in enumerate(poses)]]
+    return FrontendResult(
+        trajectory=traj, poses=poses, points3d=points3d,
+        point_colors=colors, point_groups=groups, ba_data=data,
+        n_keyframes=sum(1 for a in accepted_flags if a == 2),
+        accepted=accepted_flags)
+
+
+def _write_live(state, poses, fps, traj_out_file, map_out_file,
+                t0: float = 0.0):
+    """Periodic trajectory/map flush (write_output, slam2.py:698-740)."""
+    tum.save_trajectory(traj_out_file, _trajectory(poses, fps, t0))
+    if map_out_file:
+        n = int(state.n_objp)
+        pts = state.objp[:n].cpu().numpy()
+        gray = np.clip(state.objp_color[:n].cpu().numpy(), 0,
+                       255).astype(np.uint8)
+        pcd_mod.save_pcd(map_out_file, pts,
+                         np.stack([gray, gray, gray], axis=1))

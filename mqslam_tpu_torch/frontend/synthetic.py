@@ -10,7 +10,7 @@ velocities, so keyframes de-synchronize across the fleet.
 import numpy as np
 
 __all__ = ["make_texture", "render_plane_sequence", "backproject_to_plane",
-           "build_sequence", "divergent_fleet_params",
+           "sequence_poses", "build_sequence", "divergent_fleet_params",
            "build_divergent_fleet"]
 
 
@@ -90,13 +90,9 @@ def backproject_to_plane(uv, P, f, c, plane_z=4.0):
     return center[None, :] + s[:, None] * d_world
 
 
-def build_sequence(n_frames=33, size=(640, 480), f=500.0, plane_z=4.0,
-                   seed=7, ang_rate=0.05, vel=(1.2, 0.15, 0.2)):
-    """One agent's sequence: a camera that yaws by ``ang_rate`` rad and
-    translates by ``vel`` over the run.  Returns (imgs [n, H, W] f32,
-    P_list [n, 4, 4], f, size, plane_z)."""
-    rng = np.random.RandomState(seed)
-    tex = make_texture(rng)
+def sequence_poses(n_frames=33, ang_rate=0.05, vel=(1.2, 0.15, 0.2)):
+    """[n, 4, 4] world-to-cam extrinsics of a camera that yaws by
+    ``ang_rate`` rad and translates by ``vel`` over the run."""
     P_list = []
     for i in range(n_frames):
         frac = i / max(n_frames - 1, 1)
@@ -108,9 +104,23 @@ def build_sequence(n_frames=33, size=(640, 480), f=500.0, plane_z=4.0,
         P[:3, :3] = R
         P[:3, 3] = -R @ center
         P_list.append(P)
-    imgs = render_plane_sequence(np.stack(P_list), tex, size=size, f=f,
-                                 plane_z=plane_z)
-    return imgs, np.stack(P_list), f, size, plane_z
+    return np.stack(P_list)
+
+
+def build_sequence(n_frames=33, size=(640, 480), f=500.0, plane_z=4.0,
+                   seed=7, ang_rate=0.05, vel=(1.2, 0.15, 0.2),
+                   tex_scale=64.0, frames=None):
+    """One agent's sequence along ``sequence_poses``.  Returns (imgs
+    [n, H, W] f32, P_list [n, 4, 4], f, size, plane_z).  ``frames`` (a
+    slice) renders only those frames of the run, so one long sequence can be
+    rendered in pieces."""
+    tex = make_texture(np.random.RandomState(seed))
+    P_list = sequence_poses(n_frames, ang_rate, vel)
+    if frames is not None:
+        P_list = P_list[frames]
+    imgs = render_plane_sequence(P_list, tex, size=size, f=f,
+                                 plane_z=plane_z, tex_scale=tex_scale)
+    return imgs, P_list, f, size, plane_z
 
 
 def divergent_fleet_params(A, n_frames=33, size=(640, 480), f=500.0,

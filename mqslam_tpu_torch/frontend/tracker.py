@@ -32,7 +32,7 @@ from mqslam_tpu_torch.ops import features, homography, lk, pnp
 from mqslam_tpu_torch.ops import triangulation as tri
 
 __all__ = ["TrackerConfig", "TrackerState", "TrackInterm", "StepOutput",
-           "make_step", "bootstrap", "make_scan_runner",
+           "StageClock", "make_step", "bootstrap", "make_scan_runner",
            "make_multi_agent_runner"]
 
 
@@ -430,14 +430,21 @@ def make_step(cal: cam_mod.Cal3DS2, config: TrackerConfig, device=None):
     post_flow.finalize = finalize
 
     def step_pyr(state: TrackerState, prev_pyr, new_pyr, scores=None,
-                 generator=None):
+                 generator=None, clock=None):
         """Per-frame step of ONE agent over pyramids pre-padded by
-        ``lk.lk_pad(win)`` (build via lk.build_pyramid(img, levels, pad))."""
+        ``lk.lk_pad(win)`` (build via lk.build_pyramid(img, levels, pad)).
+        ``clock`` (a StageClock) is marked after the flow and after the
+        rest."""
         new_uv, st_of, err_of = lk.lk_track_pyr(
             prev_pyr, new_pyr, state.cur_uv, state.active,
             win=config.lk_win, prepad=True)
-        return post_flow(state, new_pyr[0], new_uv, st_of, err_of, scores,
-                         generator)
+        if clock is not None:
+            clock.mark("lk")
+        res = post_flow(state, new_pyr[0], new_uv, st_of, err_of, scores,
+                        generator)
+        if clock is not None:
+            clock.mark("track_keyframe")
+        return res
 
     step_pyr.post_flow = post_flow
 
@@ -489,7 +496,7 @@ def make_scan_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
     return run
 
 
-class _StageClock:
+class StageClock:
     """Host-clock time per stage, each closed by a device synchronize; only
     used when a caller asks for stage times (it serializes the stream)."""
 
@@ -546,7 +553,7 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
         imgs = torch.as_tensor(imgs, dtype=torch.float32).to(device)
         states = TrackerState(*(x.to(device) for x in states))
         A = imgs.shape[0]
-        clock = _StageClock(stage_ms, device)
+        clock = StageClock(stage_ms, device)
         prev_atlas = atlas_pyramid(imgs[:, 0])
         outs = []
         for idx in range(imgs.shape[1] - 1):

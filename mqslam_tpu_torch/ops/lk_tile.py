@@ -34,7 +34,8 @@ import ctypes
 
 import torch
 
-__all__ = ["lk_level", "lk_level_plain", "launches", "search_side"]
+__all__ = ["lk_level", "lk_level_plain", "launches", "search_side",
+           "check_level_args", "launch_buffers"]
 
 launches = 0
 
@@ -46,12 +47,14 @@ def search_side(win: int, hiX: float) -> int:
     return int(round(hiX)) + 2 + win
 
 
-def _check(imgJ, imgI, cJ, cI, aJ, a0, valid, A):
+def check_level_args(imgJ, imgI, cJ, cI, aJ, a0, valid, A,
+                     img_dtype=torch.float32):
+    """Raise on what a level (this one or ``lk_fused``'s) does not take."""
     T = cJ.shape[0]
     if imgJ.dim() != 2 or imgI.shape != imgJ.shape:
         raise ValueError("imgJ/imgI must be [A*Hp, Wp] of one shape")
-    if imgJ.dtype != torch.float32 or imgI.dtype != torch.float32:
-        raise TypeError("imgJ/imgI must be float32")
+    if imgJ.dtype != img_dtype or imgI.dtype != img_dtype:
+        raise TypeError(f"imgJ/imgI must be {img_dtype}")
     if imgJ.shape[0] % A or T % A:
         raise ValueError(f"rows {imgJ.shape[0]} and tracks {T} must divide "
                          f"into A={A} tiles")
@@ -73,7 +76,7 @@ def lk_level_plain(imgJ, imgI, cJ, cI, aJ, a0, valid, A: int, win: int,
 
     ``return_iters`` also returns the number of Newton steps each track took
     (what a work count for this input needs)."""
-    _check(imgJ, imgI, cJ, cI, aJ, a0, valid, A)
+    check_level_args(imgJ, imgI, cJ, cI, aJ, a0, valid, A)
     T = cJ.shape[0]
     dev = imgJ.device
     Hp, Wp = imgJ.shape[0] // A, imgJ.shape[1]
@@ -160,6 +163,22 @@ def lk_level_plain(imgJ, imgI, cJ, cI, aJ, a0, valid, A: int, win: int,
     return out + (n_it,) if return_iters else out
 
 
+def launch_buffers(imgJ, imgI, cJ, cI, aJ, a0, valid):
+    """What a launch needs beside its checked inputs: ``valid`` as one byte
+    per track, every input contiguous (raises otherwise), and the three
+    output tensors.  Returns (valid, a_out, min_eig, err)."""
+    if valid.dtype != torch.bool:
+        valid = valid != 0
+    for name, x in (("imgJ", imgJ), ("imgI", imgI), ("cJ", cJ), ("cI", cI),
+                    ("aJ", aJ), ("a0", a0), ("valid", valid)):
+        if not x.is_contiguous():
+            raise ValueError(f"lk_level: {name} must be contiguous")
+    T = cJ.shape[0]
+    f32 = dict(dtype=torch.float32, device=imgJ.device)
+    return (valid, torch.empty((T, 2), **f32), torch.empty(T, **f32),
+            torch.empty(T, **f32))
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -184,18 +203,11 @@ def lk_level(imgJ, imgI, cJ, cI, aJ, a0, valid, A: int, win: int,
                               iters, eps, hiX, want_err)
     if imgJ.device.type != "cuda":
         raise RuntimeError(f"lk_level: unsupported device {imgJ.device}")
-    _check(imgJ, imgI, cJ, cI, aJ, a0, valid, A)
-    if valid.dtype != torch.bool:      # one byte per track on the card
-        valid = valid != 0
-    for name, x in (("imgJ", imgJ), ("imgI", imgI), ("cJ", cJ), ("cI", cI),
-                    ("aJ", aJ), ("a0", a0), ("valid", valid)):
-        if not x.is_contiguous():
-            raise ValueError(f"lk_level: {name} must be contiguous")
+    check_level_args(imgJ, imgI, cJ, cI, aJ, a0, valid, A)
+    valid, a_out, eig, err = launch_buffers(imgJ, imgI, cJ, cI, aJ, a0,
+                                            valid)
     T = cJ.shape[0]
     Hp, Wp = imgJ.shape[0] // A, imgJ.shape[1]
-    a_out = torch.empty((T, 2), dtype=torch.float32, device=imgJ.device)
-    eig = torch.empty(T, dtype=torch.float32, device=imgJ.device)
-    err = torch.empty(T, dtype=torch.float32, device=imgJ.device)
     lib = _library()
     with torch.cuda.device(imgJ.device):
         rc = lib.lk_level_launch(

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the port's main path spends a frame-group on the GPU.
+"""Where the port's paths spend a frame-group on the GPU.
 
     python3 prof_torch_multi.py [--groups 3]
+    python3 prof_torch_multi.py --single [--groups 8]
 
 Runs ``mqslam_tpu_torch``'s multi-agent runner at full width (16 divergent
 agents, 640x480, TrackerConfig() defaults, the fleet of ``chip_smoke.py``)
@@ -9,7 +10,11 @@ under ``torch.profiler`` for a few frame-groups after a warm-up run, and
 prints one JSON object: wall time of the window with and without the
 profiler, the device's busy time and its idle share of the unprofiled wall
 time, kernel launches per frame-group, and the kernels that take the most
-device time.  Needs a CUDA device; imports only the port.
+device time.  With ``--single`` the window is the single-agent path instead:
+``run_frontend`` over ``--groups`` tracked 1280x720 frames of
+``chip_smoke.py``'s single sequence (its first frames), its bootstrap on
+frame 0 included (a frame-group is then one frame).  Needs a CUDA device;
+imports only the port.
 """
 
 import argparse
@@ -24,38 +29,66 @@ import chip_smoke
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--groups", type=int, default=3,
-                    help="frame-groups inside the profiled window")
+    ap.add_argument("--groups", type=int, default=None,
+                    help="frame-groups inside the profiled window (default "
+                         "3, with --single 8)")
+    ap.add_argument("--single", action="store_true",
+                    help="profile the single-agent run_frontend instead")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
+    if args.groups is None:
+        args.groups = 8 if args.single else 3
     if not torch.cuda.is_available():
         print("prof_torch_multi: needs a CUDA device", file=sys.stderr)
         return 1
     from mqslam_tpu_torch import csrc
     from mqslam_tpu_torch.frontend import tracker as trk
+    from mqslam_tpu_torch.frontend.runner import run_frontend
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device("cuda")
     csrc.build_all()
-    n_warm = 4
-    seqs = chip_smoke.render_fleet(16, n_warm + args.groups + 1, (640, 480),
-                                   500.0)
     config = trk.TrackerConfig()
-    cal, states, imgs = chip_smoke.bootstrap_fleet(seqs, config, device)
-    imgs = torch.as_tensor(imgs).to(device)
-    run = trk.make_multi_agent_runner(cal, config, device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    states, _ = run(states, imgs[:, :n_warm + 1], generator=gen)
-    torch.cuda.synchronize()
+    if args.single:
+        # the first frames of the smoke script's sequence, at its motion
+        seq = chip_smoke._render_agent(dict(
+            chip_smoke.SINGLE, frames=slice(0, args.groups + 1)))
+        cal = chip_smoke.calibration(seq, device)
+        uv0, objp = chip_smoke.init_correspondences(seq, device)
 
-    def window():
-        """The same frame-groups from the same state and draws each time."""
-        g = torch.Generator(device=device).manual_seed(1)
+        def window():
+            """The same frames from the same bootstrap and draws each
+            time."""
+            g = torch.Generator(device=device).manual_seed(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_frontend(list(seq[0]), cal, config, uv0, objp,
+                               generator=g, collect_ba=True, device=device)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, \
+                torch.tensor(res.accepted[1:])[:, None]
+
+        window()                                   # warm-up
+    else:
+        n_warm = 4
+        seqs, _ = chip_smoke.render_all(16, n_warm + args.groups + 1,
+                                        (640, 480), 500.0)
+        cal, states, imgs = chip_smoke.bootstrap_fleet(seqs, config, device)
+        imgs = torch.as_tensor(imgs).to(device)
+        run = trk.make_multi_agent_runner(cal, config, device=device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        states, _ = run(states, imgs[:, :n_warm + 1], generator=gen)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, (acc, _, _) = run(states, imgs[:, n_warm:], generator=g)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, acc
+
+        def window():
+            """The same frame-groups from the same state and draws each
+            time."""
+            g = torch.Generator(device=device).manual_seed(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, (acc, _, _) = run(states, imgs[:, n_warm:], generator=g)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, acc
 
     # the profiler slows the host, and the host sets this path's pace: the
     # idle share is taken against the window's wall time without it
@@ -78,7 +111,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     print(json.dumps({
-        "device": smi, "frame_groups": args.groups,
+        "device": smi,
+        "path": "single_agent" if args.single else "multi_agent",
+        "frame_groups": args.groups,
         "keyframe_groups": int((acc == 2).any(dim=1).sum()),
         "wall_ms_per_frame_group": wall_ms / args.groups,
         "device_busy_ms_per_frame_group": busy_ms / args.groups,
@@ -86,8 +121,9 @@ def main():
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_idle_share_under_profiler": 1.0 - busy_ms / profiled_wall_ms,
         "device_ops_per_frame_group": n_kernels / args.groups,
-        "lk_level_device_ms_per_frame_group": sum(
-            us for k, us, _ in rows if "lk_level" in k) / 1e3 / args.groups,
+        "lk_kernel_device_ms_per_frame_group": sum(
+            us for k, us, _ in rows
+            if "lk_level" in k or "lk_strip" in k) / 1e3 / args.groups,
         "note": "wall_ms and device_idle_share: the window without the "
                 "profiler (best of 2); busy time: the profiled window",
         "top": [{"name": k[:80], "device_ms_per_frame_group":

@@ -158,3 +158,25 @@ def test_camera_batched_poses(rng):
         uv_a, z_a = tcam.project(X[a], P[a], tcal)
         np.testing.assert_allclose(uv[a].numpy(), uv_a.numpy(), atol=1e-6)
         np.testing.assert_allclose(z[a].numpy(), z_a.numpy(), atol=1e-6)
+
+
+def test_camera_K_and_calibration_round_trip(rng):
+    """cal_from_K_dist / K_from_cal: pure re-arrangement, exact; batched; a
+    fifth distortion coefficient (k3) is dropped; no ``dist`` means zeros."""
+    K = np.tile(np.eye(3, dtype=np.float32), (4, 1, 1))
+    K[:, 0, 0], K[:, 1, 1] = 300 + rng.rand(4), -(300 + rng.rand(4))
+    K[:, 0, 1] = rng.randn(4) * 0.1
+    K[:, :2, 2] = 100 + rng.rand(4, 2)
+    dist = (rng.randn(4, 5) * 0.01).astype(np.float32)
+    jcal = jcam.cal_from_K_dist(jnp.asarray(K), jnp.asarray(dist))
+    tcal = tcam.cal_from_K_dist(torch.tensor(K), torch.tensor(dist))
+    np.testing.assert_array_equal(tcal.as_array().numpy(),
+                                  np.asarray(jcal.as_array()))
+    np.testing.assert_array_equal(tcam.K_from_cal(tcal).numpy(), K)
+    np.testing.assert_array_equal(tcam.K_from_cal(tcal).numpy(),
+                                  np.asarray(jcam.K_from_cal(jcal)))
+    one = tcam.cal_from_K_dist(torch.tensor(K[0]))
+    np.testing.assert_array_equal(
+        one.as_array().numpy(),
+        np.asarray(jcam.cal_from_K_dist(jnp.asarray(K[0])).as_array()))
+    assert (one.as_array()[5:] == 0).all()

@@ -16,7 +16,7 @@ import torch
 import mqslam_tpu_torch
 from mqslam_tpu_torch import convert, csrc
 from mqslam_tpu_torch.frontend import tracker as trk
-from mqslam_tpu_torch.ops import lk_tile
+from mqslam_tpu_torch.ops import lk_fused, lk_tile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mqslam_tpu_torch")
@@ -35,10 +35,13 @@ def test_slice_modules_present():
               "core.camera", "ops.linalg", "ops.lk", "ops.lk_tile",
               "ops.features", "ops.homography", "ops.triangulation",
               "ops.pnp", "frontend.synthetic", "frontend.tracker", "convert",
-              "csrc"):
+              "csrc", "ops.lk_fused", "frontend.runner", "cli",
+              "cli.slam_run", "io", "io.tum", "io.pcd", "io.ba_info",
+              "io.intrinsics", "io.images", "io.nputil"):
         assert "mqslam_tpu_torch." + m in mods, m
-    assert os.path.exists(os.path.join(PKG, "csrc", "lk_level.cu"))
-    assert csrc.sources() == ["lk_level"]
+    for f in ("lk_level.cu", "lk_strip.cu", "lk_track.cuh"):
+        assert os.path.exists(os.path.join(PKG, "csrc", f))
+    assert csrc.sources() == ["lk_level", "lk_strip"]
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
@@ -127,6 +130,37 @@ def test_wrapper_takes_plain_version_for_cpu_tensors_only():
     assert lk_tile.launches == before
 
 
+def test_strip_wrapper_takes_plain_version_for_cpu_tensors_only():
+    args = _level_args()
+    args = args[:7] + args[8:]              # the strip level has no tile count
+    before = lk_fused.launches
+    out = lk_fused.lk_level(*args)
+    ref = lk_fused.lk_level_plain(*args)
+    tiled = lk_tile.lk_level_plain(*_level_args())   # one tile: same function
+    assert lk_fused.launches == before
+    for x, y, z in zip(out, ref, tiled):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+        np.testing.assert_array_equal(x.numpy(), z.numpy())
+    meta = [x.to("meta") if torch.is_tensor(x) else x for x in args]
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        lk_fused.lk_level(*meta)
+    assert lk_fused.launches == before
+
+
+def test_build_digest_covers_shared_headers(monkeypatch, tmp_path):
+    """A kernel's library is rebuilt when a header it may include changes."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text('#include "h.cuh"\n')
+    (src / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(csrc, "SRC_DIR", str(src))
+    first = csrc._target("k")[1]
+    assert csrc._target("k")[1] == first
+    (src / "h.cuh").write_text("// two\n")
+    assert csrc._target("k")[1] != first
+    assert csrc.sources() == ["k"]
+
+
 def test_kernel_build_needs_the_compiler(monkeypatch, tmp_path):
     """No nvcc here: building raises (it does not fall back), and says
     what is missing.  With a card the wrapper would reach this same
@@ -134,8 +168,9 @@ def test_kernel_build_needs_the_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(csrc, "BUILD_DIR", str(tmp_path / "_build"))
     monkeypatch.setattr(csrc.shutil, "which", lambda _: None)
     monkeypatch.setattr(csrc.os.path, "exists", lambda p: False)
-    with pytest.raises(RuntimeError, match="nvcc"):
-        csrc.load("lk_level")
+    for name in ("lk_level", "lk_strip"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            csrc.load(name)
 
 
 def test_chip_smoke_fails_without_a_cuda_device():

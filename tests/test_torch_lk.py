@@ -198,7 +198,7 @@ def test_level_wrapper_rejects_bad_inputs(pair):
 
 
 def test_lk_track_matches_tiled_and_xla(pair):
-    """The port's one LK against JAX impl="tiled" (interpret): status equal,
+    """The port's tile-kernel LK against JAX impl="tiled" (interpret): status equal,
     flow atol 1e-3 px, err atol 1e-2; against impl="xla": status equal, flow
     atol 2e-3 px (its window cap is one pixel looser; the JAX package's own
     test holds its kernels to the same bound)."""
@@ -210,7 +210,7 @@ def test_lk_track_matches_tiled_and_xla(pair):
     a_t, s_t, e_t = jlk.lk_track(*args, impl="tiled", interpret=True)
     a_x, s_x, e_x = jlk.lk_track(*args, impl="xla")
     a, s, e = tlk.lk_track(torch.tensor(base), torch.tensor(moved),
-                           torch.tensor(pts))
+                           torch.tensor(pts), impl="tiled")
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_t))
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_x))
     ok = s.numpy()
@@ -259,7 +259,7 @@ def test_lk_atlas_two_agents(pair):
     prev, nxt = tatlas([base, base]), tatlas(moved)
     a, s, e = tlk.lk_track_pyr(prev, nxt, torch.tensor(pts2), win=21,
                                prepad=True, atlas_agents=torch.tensor(agents),
-                               atlas_tiles=2)
+                               atlas_tiles=2, impl="tiled")
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_j))
     ok = s.numpy()
     assert ok.all()
@@ -273,11 +273,16 @@ def test_lk_atlas_two_agents(pair):
                                  prepad=True, atlas_tiles=2,
                                  atlas_contiguous=True)
     np.testing.assert_array_equal(a2.numpy(), a.numpy())
-    # scattered agent ids are another kernel's job
-    with pytest.raises(NotImplementedError, match="K2"):
+    # scattered agent ids are the strip kernel's job: the tile kernel
+    # refuses them, and "auto" hands them over (same per-track function, so
+    # the same numbers for the same tracks)
+    rev = dict(atlas_agents=torch.tensor(agents[::-1].copy()), atlas_tiles=2)
+    with pytest.raises(ValueError, match="agent-contiguous"):
         tlk.lk_track_pyr(prev, nxt, torch.tensor(pts2), win=21, prepad=True,
-                         atlas_agents=torch.tensor(agents[::-1].copy()),
-                         atlas_tiles=2)
-    with pytest.raises(NotImplementedError, match="K2"):
+                         impl="tiled", **rev)
+    a3, s3, _ = tlk.lk_track_pyr(prev, nxt, torch.tensor(pts2[::-1].copy()),
+                                 win=21, prepad=True, **rev)
+    np.testing.assert_array_equal(a3.numpy()[::-1], a.numpy())
+    with pytest.raises(ValueError, match="atlas_agents"):
         tlk.lk_track_pyr(prev, nxt, torch.tensor(pts2), win=21, prepad=True,
                          atlas_tiles=2)

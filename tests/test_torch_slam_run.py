@@ -1,0 +1,151 @@
+"""The port's command line over files, on the CPU: 8-bit PNG frames,
+``camera_intrinsics.txt``, ``init_pose.txt`` and ``init_points.pcd`` in, a
+TUM trajectory, a PCD map and a ``BA_info.*`` dump out; the outputs load back
+through BOTH packages' ``io``.  320x240, 128 tracks, 7 frames."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mqslam_tpu.ba import validate as jvalidate
+from mqslam_tpu.io import ba_info as jba, pcd as jpcd, tum as jtum
+from mqslam_tpu_torch import convert
+from mqslam_tpu_torch.cli import slam_run
+from mqslam_tpu_torch.frontend import synthetic as tsyn
+from mqslam_tpu_torch.io import (ba_info as tba, intrinsics as tintr,
+                                 pcd as tpcd, tum as ttum)
+from mqslam_tpu_torch.ops import features as tfeat
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+F, SIZE, PLANE_Z, N_FRAMES = 250.0, (320, 240), 4.0, 7
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    from PIL import Image
+    d = tmp_path_factory.mktemp("seq")
+    imgs, P_list, *_ = tsyn.build_sequence(
+        n_frames=N_FRAMES, size=SIZE, f=F, plane_z=PLANE_Z, seed=7,
+        ang_rate=0.03, vel=(0.35, 0.035, 0.07))
+    os.makedirs(d / "frames")
+    imgs8 = np.clip(np.rint(imgs), 0, 255).astype(np.uint8)
+    for i, im in enumerate(imgs8):
+        Image.fromarray(im).save(d / "frames" / f"frame-{i}.png")
+    K = np.array([[F, 0, SIZE[0] / 2], [0, F, SIZE[1] / 2], [0, 0, 1]])
+    tintr.save_camera_intrinsics(d / "camera_intrinsics.txt", K,
+                                 np.zeros(5), SIZE)
+    np.savetxt(d / "init_pose.txt", P_list[0])
+    uv, valid = tfeat.detect_corners(torch.tensor(imgs8[0].astype(np.float32)),
+                                     max_corners=96, cell=12)
+    uv = uv[valid][:64].numpy()
+    objp = tsyn.backproject_to_plane(uv, P_list[0], F,
+                                     (SIZE[0] / 2, SIZE[1] / 2), PLANE_Z)
+    # plus points the visibility filter must drop: behind, and off-image
+    extra = np.array([[0.0, 0.0, -3.0], [40.0, 0.0, PLANE_Z]])
+    tpcd.save_pcd(d / "init_points.pcd", np.concatenate([objp, extra]))
+    return dict(dir=d, P_list=P_list, n_init=len(uv))
+
+
+def run_cli(dataset, out, *extra):
+    d = dataset["dir"]
+    return slam_run.main([
+        str(d / "frames"), str(d / "camera_intrinsics.txt"),
+        "--init-pose", str(d / "init_pose.txt"),
+        "--init-points", str(d / "init_points.pcd"),
+        "--traj-out", str(out / "traj_out.cam0-mqslam.txt"),
+        "--map-out", str(out / "map_out-mqslam.pcd"),
+        "--ba-info-dir", str(out), "--max-tracks", "128",
+        "--target-keypoints", "100", "--device", "cpu", *extra])
+
+
+def test_cli_outputs_load_through_both_packages(dataset, tmp_path, capsys):
+    assert run_cli(dataset, tmp_path) == 0
+    said = capsys.readouterr().out
+    assert f"init: {dataset['n_init']}/{dataset['n_init'] + 2}" in said
+    assert f"done: {N_FRAMES}/{N_FRAMES} frames accepted" in said
+
+    traj = tmp_path / "traj_out.cam0-mqslam.txt"
+    a, b = jtum.load_trajectory(traj), ttum.load_trajectory(traj)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert len(b.timestamps) == N_FRAMES
+    np.testing.assert_allclose(b.timestamps[0], 1 / 30.0)
+    # the trajectory follows the known camera path (8-bit frames)
+    c_gt = np.stack([-(P[:3, :3].T @ P[:3, 3]) for P in dataset["P_list"]])
+    assert np.abs(b.locations - c_gt).max() < 0.02
+
+    mp = tmp_path / "map_out-mqslam.pcd"
+    pj, pt = jpcd.load_pcd(mp), tpcd.load_pcd(mp)
+    np.testing.assert_array_equal(pj[0], pt[0])
+    np.testing.assert_array_equal(pj[1], pt[1])
+    assert len(pt[0]) >= dataset["n_init"]
+    np.testing.assert_allclose(pt[0][:, 2][:dataset["n_init"]], PLANE_Z,
+                               atol=1e-4)
+
+    dj = jba.load_ba_data(str(tmp_path), "mqslam", nr_cameras=1, fps=30)
+    dt = tba.load_ba_data(str(tmp_path), "mqslam", nr_cameras=1, fps=30)
+    fj, ft = convert.flatten_ba_data(dj), convert.flatten_ba_data(dt)
+    assert fj.keys() == ft.keys()
+    for k in fj:
+        np.testing.assert_array_equal(fj[k], ft[k], err_msg=k)
+    assert dt.nr_steps == N_FRAMES and len(dt.points3D) == len(pt[0])
+    assert jvalidate.validate_data_integrity(dt)
+    assert sum(len(o) for o in dt.odometry) >= 1      # a keyframe fired
+
+
+def test_cli_max_frames_and_quiet(dataset, tmp_path, capsys):
+    assert run_cli(dataset, tmp_path, "--max-frames", "3", "--quiet") == 0
+    said = capsys.readouterr().out
+    assert said.startswith("done: 3/3 frames accepted")
+    assert len(ttum.load_trajectory(
+        tmp_path / "traj_out.cam0-mqslam.txt").timestamps) == 3
+
+
+@pytest.mark.parametrize("flags, word", [
+    (["--init-chessboard", "8x6"], "chessboard"),
+    (["--loop-closure"], "loopclosure"),
+    (["--checkpoint", "ck.npz"], "checkpoint"),
+    (["--resume"], "checkpoint"),
+    (["--debug-dir", "dbg"], "painter"),
+])
+def test_cli_unported_options_exit_with_a_message(dataset, tmp_path, capsys,
+                                                  flags, word):
+    assert run_cli(dataset, tmp_path, *flags) == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and word in err
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_needs_init_and_images(dataset, tmp_path, capsys):
+    d = dataset["dir"]
+    assert slam_run.main([str(d / "frames"),
+                          str(d / "camera_intrinsics.txt"),
+                          "--device", "cpu"]) == 1
+    assert "--init-pose" in capsys.readouterr().err
+    os.makedirs(tmp_path / "empty")
+    assert slam_run.main([str(tmp_path / "empty"),
+                          str(d / "camera_intrinsics.txt"),
+                          "--device", "cpu"]) == 1
+    assert "No images" in capsys.readouterr().err
+
+
+def test_cli_defaults_to_the_cuda_device(dataset, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = dataset["dir"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        slam_run.main([str(d / "frames"), str(d / "camera_intrinsics.txt"),
+                       "--init-pose", str(d / "init_pose.txt"),
+                       "--init-points", str(d / "init_points.pcd")])
+
+
+def test_module_runs_as_a_program():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-m", "mqslam_tpu_torch.cli.slam_run", "--help"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout and "--init-points" in out.stdout
