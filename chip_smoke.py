@@ -14,7 +14,13 @@ Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
      the strip kernel (``lk_strip``) at the single-agent path's own shapes in
      float32 (a) and bfloat16 (b), and on the tile kernel's inputs with the
      tracks shuffled and the corners made absolute (c), where it must also
-     agree with the tile kernel's own output,
+     agree with the tile kernel's own output; the extraction kernel
+     (``extract``) on the calls ``lk_track_pyr(impl="xla")`` makes on the
+     bench's 640x480 pair at T = 384 (a) and on the fleet's 16-tile atlas at
+     T = 6144 (b), and on corners out of bounds on every side (c), bit-equal
+     to its plain version, beside the one advanced-indexing call that
+     computes the same gather; the Newton-loop kernel (``lk_iterate``) on the
+     calls ``impl="pallas"`` makes at T = 384 (a) and T = 6144 (b),
   3. drives the multi-agent path — ``make_multi_agent_runner`` at full
      width: 16 divergent agents, 640x480, 33 frames, ``TrackerConfig()``
      defaults — with the launch counts set to 0 just before and read just
@@ -23,8 +29,15 @@ Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
      agent, 1280x720, 49 frames, the same defaults, BA data collected — the
      same way, then the command line over PNG files in a temporary
      directory, whose three outputs must match the in-memory run,
-  5. runs both paths on the card against themselves on the CPU at a small
-     size.
+  5. drives the explicit LK modes — ``lk_track_pyr(impl="xla")`` (through
+     the extraction kernel) and ``(impl="pallas")`` (through the Newton-loop
+     kernel) at T = 384 and T = 6144 — with the launch counts set to 0 just
+     before each call and read just after, held against ``impl="fused"`` and
+     against each other,
+  6. runs the port bench's LK and triangulation sections once at their full
+     sizes (``python -m mqslam_tpu_torch.bench`` runs the whole bench),
+  7. runs both paths and both LK modes on the card against themselves on the
+     CPU at a small size.
 
 Every phase must pass; the last line of the output is
 ``{"ok": true, "device": {...}}``.  One JSON object per line before it.
@@ -35,6 +48,7 @@ import json
 import multiprocessing
 import statistics
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -228,6 +242,18 @@ def time_each_ms(fn, reps=20, warmup=1, flush=None):
     return statistics.median(out)
 
 
+def lk_flops(n_tracks, win, want_err, n_it):
+    """Operations of one LK level for tracks that run: the lerps, gradients
+    and structure tensor per track, 14 win^2 per Newton step this input
+    actually took (``n_it`` [T], counted by the plain version), 11 win^2
+    for the error."""
+    W2 = win + 2
+    per_track = 3 * W2 * (W2 + 1) + 3 * W2 * W2 + 10 * win * win + 16
+    per_iter = 14 * win * win + 12
+    return (n_tracks * (per_track + (11 * win * win if want_err else 0))
+            + int(n_it.sum()) * per_iter)
+
+
 def lk_level_bound(imgJ, n_tracks, n_valid, win, hiX, want_err, n_it):
     """Least time for one level on these inputs: (ms, by, working).
 
@@ -243,11 +269,7 @@ def lk_level_bound(imgJ, n_tracks, n_valid, win, hiX, want_err, n_it):
     image_b = 2 * imgJ.numel() * px
     io_b = n_tracks * (2 * 8 + 2 * 8 + 1 + 8 + 4 + 4)
     nbytes = min(region_b, image_b) + io_b
-    W2 = win + 2
-    per_track = 3 * W2 * (W2 + 1) + 3 * W2 * W2 + 10 * win * win + 16
-    per_iter = 14 * win * win + 12
-    flops = (n_valid * (per_track + (11 * win * win if want_err else 0))
-             + int(n_it.sum()) * per_iter)
+    flops = lk_flops(n_valid, win, want_err, n_it)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = flops / FP32_FLOP_PER_S * 1e3
     working = dict(n_valid=n_valid, bytes_per_pixel=px,
@@ -259,23 +281,30 @@ def lk_level_bound(imgJ, n_tracks, n_valid, win, hiX, want_err, n_it):
         working
 
 
-def record_level_calls(module, run):
-    """The argument lists ``run()`` hands to ``module.lk_level`` (the level
+def record_calls(module, name, run):
+    """The (args, kwargs) ``run()`` hands to ``module.<name>`` (the call
     still runs)."""
     recorded = []
-    real = module.lk_level
+    real = getattr(module, name)
 
     def recorder(*args, **kw):
-        recorded.append((args, kw["want_err"]))
+        recorded.append((args, kw))
         return real(*args, **kw)
 
-    module.lk_level = recorder
+    setattr(module, name, recorder)
     try:
         run()
     finally:
-        module.lk_level = real
+        setattr(module, name, real)
     torch.cuda.synchronize()
     return recorded
+
+
+def record_level_calls(module, run):
+    """The argument lists ``run()`` hands to ``module.lk_level``, each with
+    its ``want_err``."""
+    return [(args, kw["want_err"])
+            for args, kw in record_calls(module, "lk_level", run)]
 
 
 def hold_level(kernel, plain, args, want_err, flush):
@@ -334,16 +363,20 @@ def hold_level(kernel, plain, args, want_err, flush):
 
 
 def sum_levels(levels):
-    """One record for the level calls of one LK call: times and bound
+    """One record for the kernel calls of one LK call: times and bound
     summed, errors at their worst."""
     tot = lambda k: sum(l[k] for l in levels)
-    return dict(
+    rec = dict(
         max_abs_err=max(l["max_abs_err"] for l in levels), ms=tot("ms"),
         ms_graph=tot("ms_graph"), ms_l2_flushed=tot("ms_l2_flushed"),
         plain_ms=tot("plain_ms"),
         bound_ms=tot("bound_ms"),
         bound_by=max(levels, key=lambda l: l["bound_ms"])["bound_by"],
         levels=levels)
+    for k in ("library_ms", "library_ms_graph"):
+        if k in levels[0]:
+            rec[k] = tot(k)
+    return rec
 
 
 TIMING_NOTE = ("ms / plain_ms / bound_ms are sums over the three level "
@@ -354,7 +387,7 @@ TIMING_NOTE = ("ms / plain_ms / bound_ms are sums over the three level "
                "relative, err 1e-2")
 
 
-def phase_kernel_tile(states, imgs, config, flush):
+def phase_kernel_tile(fleet_in, config, flush):
     """K1 (lk_tile.lk_level) against its plain version at the multi-agent
     path's shapes: the three level calls of one frame-group's LK, inputs
     recorded from ``lk_track_pyr`` on two consecutive rendered frames, with
@@ -362,17 +395,10 @@ def phase_kernel_tile(states, imgs, config, flush):
     kernel's outputs per call)."""
     from mqslam_tpu_torch.ops import lk, lk_tile
 
-    A, K = states.active.shape
-    pad = lk.lk_pad(config.lk_win)
-    dev = states.active.device
-    atlas = lambda im: [l.reshape(-1, l.shape[-1]) for l in lk.build_pyramid(
-        torch.as_tensor(im).to(dev), config.lk_levels, pad=pad)]
-    uv = states.cur_uv.clone()
-    uv[~states.active] = float("nan")     # never-initialised slots
-    recorded = record_level_calls(lk_tile, lambda: lk.lk_track_pyr(
-        atlas(imgs[:, 0]), atlas(imgs[:, 1]), uv.reshape(A * K, 2),
-        states.active.reshape(A * K), win=config.lk_win, prepad=True,
-        atlas_tiles=A, atlas_contiguous=True))
+    lk_args, kw = fleet_in
+    A = kw["atlas_tiles"]
+    recorded = record_level_calls(lk_tile, lambda: lk.lk_track_pyr(*lk_args,
+                                                                    **kw))
     require(len(recorded) == config.lk_levels, "expected one call per level")
     held = [hold_level(lk_tile.lk_level, lk_tile.lk_level_plain, args, we,
                        flush) for args, we in recorded]
@@ -381,7 +407,8 @@ def phase_kernel_tile(states, imgs, config, flush):
         source="mqslam_tpu_torch/csrc/lk_level.cu",
         replaces="mqslam_tpu/ops/lk_tile_pallas.py:234", launches=None,
         library_ms=None, **sum_levels([h[0] for h in held]),
-        note=f"T = {A * K} tracks, {A} tiles; " + TIMING_NOTE)
+        note=f"T = {lk_args[2].shape[0]} tracks, {A} tiles; "
+             + TIMING_NOTE)
     return rec, recorded, [h[1] for h in held]
 
 
@@ -473,6 +500,199 @@ def phase_kernel_strip(single, config, tile_calls, tile_outs, flush, device):
              f"{SINGLE['size'][0]}x{SINGLE['size'][1]} image, float32; "
              "inputs.b the same in bfloat16, inputs.c the tile kernel's "
              "T = 6144 atlas inputs shuffled; " + TIMING_NOTE,
+        inputs=inputs)
+
+
+def fleet_lk_inputs(states, imgs, config):
+    """The multi-agent path's LK call on its first frame pair: (args,
+    kwargs) of ``lk_track_pyr`` over the 16-tile atlas, agent-contiguous,
+    T = A x K tracks with the inactive slots NaN-poisoned."""
+    from mqslam_tpu_torch.ops import lk
+    A, K = states.active.shape
+    pad = lk.lk_pad(config.lk_win)
+    dev = states.active.device
+    atlas = lambda im: [l.reshape(-1, l.shape[-1]) for l in lk.build_pyramid(
+        torch.as_tensor(im).to(dev), config.lk_levels, pad=pad)]
+    uv = states.cur_uv.clone()
+    uv[~states.active] = float("nan")     # never-initialised slots
+    return ((atlas(imgs[:, 0]), atlas(imgs[:, 1]), uv.reshape(A * K, 2),
+             states.active.reshape(A * K)),
+            dict(win=config.lk_win, prepad=True, atlas_tiles=A,
+                 atlas_contiguous=True))
+
+
+def pair_lk_inputs(pair, device):
+    """The bench's LK section inputs on its 640x480 pair: (args, kwargs) of
+    ``lk_track_pyr``, T = 384."""
+    from mqslam_tpu_torch import bench
+    pts, pyr_a, pyr_b = bench.lk_pair_inputs(pair, 384, device)
+    return (pyr_a, pyr_b, pts), dict(prepad=True)
+
+
+def hold_extract(args, flush):
+    """One extraction call: the kernel against its plain version (bit-equal
+    in patches, rows and columns) and against the advanced-indexing call that
+    gathers the same block, all timed, beside the bound: the block read
+    once, but no more than the image whole (the patches of neighbouring
+    tracks overlap, as ``lk_level_bound`` counts them), the block written
+    once, and 8 bytes of corner in and 8 of (y0, cx) out per track."""
+    from mqslam_tpu_torch.ops import extract
+    img, corners, P = args
+    out_k = extract.extract_patches_dma(img, corners, P)
+    torch.cuda.synchronize()
+    out_p = extract.extract_patches_plain(img, corners, P)
+    require(all(torch.equal(k, p) for k, p in zip(out_k, out_p)),
+            "extract: kernel and plain version differ")
+    d = float((out_k[0] - out_p[0]).abs().max())
+    T = int(corners.shape[0])
+    rows = (out_p[1][:, None] + torch.arange(
+        extract.ROWS_CAP, device=img.device))[:, :, None]
+    cols = (out_p[2][:, None] + torch.arange(P, device=img.device))[:, None]
+    library = lambda: img[rows, cols]
+    require(torch.equal(library(), out_p[0]), "advanced indexing differs")
+    block_b = T * extract.ROWS_CAP * P * 4
+    read_b = min(block_b, img.numel() * img.element_size())
+    nbytes = read_b + block_b + 16 * T
+    call = lambda: extract.extract_patches_dma(img, corners, P)
+    rec = dict(
+        shape=[int(x) for x in img.shape], T=T, P=P, max_abs_err=d,
+        ms=time_ms(call), ms_graph=time_graph_ms(call),
+        ms_l2_flushed=time_each_ms(call, flush=flush),
+        plain_ms=time_each_ms(
+            lambda: extract.extract_patches_plain(img, corners, P), reps=10),
+        library_ms=time_ms(library), library_ms_graph=time_graph_ms(library),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bound_working=dict(read_bytes=read_b, write_bytes=block_b,
+                           io_bytes=16 * T, bytes=nbytes))
+    log(f"extract {rec['shape']} T={T} P={P}: kernel {rec['ms']:.4f} ms "
+        f"({rec['ms_graph']:.4f} in a graph, {rec['ms_l2_flushed']:.4f} "
+        f"L2-flushed), indexing {rec['library_ms']:.4f} "
+        f"({rec['library_ms_graph']:.4f}), bound {rec['bound_ms']:.5f} ms")
+    return rec
+
+
+def phase_kernel_extract(pair_in, fleet_in, flush):
+    """K3 (extract.extract_patches_dma) against its plain version: (a) the
+    six calls ``lk_track_pyr(impl="xla")`` makes on the bench's pair at
+    T = 384 (template P = 24 and search P = 36 on each of the three padded
+    levels), (b) the same on the fleet's 16-tile atlas at T = 6144, (c)
+    corners out of bounds on every side of (a)'s level 0."""
+    from mqslam_tpu_torch.ops import extract, lk
+
+    def calls(inputs):
+        args, kw = inputs
+        rec = record_calls(extract, "extract_patches_dma",
+                           lambda: lk.lk_track_pyr(*args, impl="xla", **kw))
+        require(len(rec) == 6, f"impl='xla' made {len(rec)} extractions, "
+                               "expected 6")
+        return [a for a, _ in rec]
+
+    calls_a, calls_b = calls(pair_in), calls(fleet_in)
+    img = max((a[0] for a in calls_a), key=lambda x: x.numel())
+    H, W = img.shape
+    i32 = torch.iinfo(torch.int32)
+    edges = [i32.min, -10 ** 6, -50, -1, 0, 7, H - 37, H - 24, H - 1, H + 50,
+             10 ** 6, i32.max]
+    edges_x = [i32.min, -10 ** 6, -50, -1, 0, 127, W - 37, W - 24, W - 1,
+               W + 50, 10 ** 6, i32.max]
+    far = torch.tensor([[y, x] for y in edges for x in edges_x],
+                       dtype=torch.int32, device=img.device)
+    calls_c = [(img, far, 24), (img, far, 36)]
+    inputs = {}
+    for key, cl in (("a", calls_a), ("b", calls_b), ("c", calls_c)):
+        inputs[key] = sum_levels([hold_extract(a, flush) for a in cl])
+    a = inputs["a"]
+    return dict(
+        name="extract", route="cuda", source="mqslam_tpu_torch/csrc/extract.cu",
+        replaces="mqslam_tpu/ops/extract_pallas.py:108", launches=None,
+        max_abs_err=max(v["max_abs_err"] for v in inputs.values()),
+        ms=a["ms"], ms_graph=a["ms_graph"], ms_l2_flushed=a["ms_l2_flushed"],
+        plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+        bound_by=a["bound_by"], library_ms=a["library_ms"],
+        library_ms_graph=a["library_ms_graph"],
+        note="top-level numbers are input (a), summed over the six calls of "
+             "one impl='xla' LK call at T = 384 on the bench's 640x480 "
+             "pair; inputs.b the fleet's T = 6144 atlas, inputs.c 144 "
+             "corners out of bounds, P = 24 and 36; library: img[rows, "
+             "cols] with the index tensors made beforehand; bit-equal "
+             "required in patches, y0 and cx; " + TIMING_NOTE,
+        inputs=inputs)
+
+
+def hold_iterate(args, flush, min_eig_threshold):
+    """One Newton-loop call: the kernel against its plain version on the
+    tracks the driver keeps (``min_eig`` at or above the gate: a flat patch
+    has G = 0, its steps are roundoff amplified by 1/1e-20 and clipped, and
+    its status is false), both timed, beside the bound: both patches read
+    once, anchors in and outputs out (32 bytes per track) over the memory
+    rate, or the operations of the steps this input took."""
+    from mqslam_tpu_torch.ops import lk_iterate
+    pJ, pI = args[0], args[1]
+    win = args[4]
+    a_k, eig_k, err_k = lk_iterate.lk_iterate(*args)
+    torch.cuda.synchronize()
+    a_p, eig_p, err_p, n_it = lk_iterate.lk_iterate_plain(
+        *args, return_iters=True)
+    ok = eig_p >= min_eig_threshold
+    require(bool(torch.equal(ok, eig_k >= min_eig_threshold)),
+            "lk_iterate: the min_eig gate differs")
+    require(bool(torch.isfinite(a_k[ok]).all()), "non-finite anchors")
+    d_a = float((a_k[ok] - a_p[ok]).abs().max())
+    d_eig = float(((eig_k[ok] - eig_p[ok]).abs()
+                   / eig_p[ok].abs().clamp(min=1e-6)).max())
+    d_err = float((err_k[ok] - err_p[ok]).abs().max())
+    require(d_a <= 2e-3, f"lk_iterate: a_final differs by {d_a} px")
+    require(d_eig <= 1e-4, f"lk_iterate: min_eig differs by {d_eig}")
+    require(d_err <= 1e-2, f"lk_iterate: err differs by {d_err}")
+    T = int(pJ.shape[0])
+    nbytes = T * (pJ.shape[1] ** 2 + pI.shape[1] ** 2) * 4 + 32 * T
+    flops = lk_flops(T, win, True, n_it)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / FP32_FLOP_PER_S * 1e3
+    call = lambda: lk_iterate.lk_iterate(*args)
+    rec = dict(
+        T=T, kept=int(ok.sum()), max_abs_err=d_a, min_eig_rel=d_eig,
+        err_abs=d_err, ms=time_ms(call), ms_graph=time_graph_ms(call),
+        ms_l2_flushed=time_each_ms(call, flush=flush),
+        plain_ms=time_each_ms(lambda: lk_iterate.lk_iterate_plain(*args),
+                              reps=10),
+        bound_ms=max(b_ms, o_ms),
+        bound_by="bytes" if b_ms >= o_ms else "operations",
+        bound_working=dict(bytes=nbytes, flops=flops,
+                           newton_steps=int(n_it.sum()), bytes_ms=b_ms,
+                           operations_ms=o_ms))
+    log(f"lk_iterate T={T}: kernel {rec['ms']:.4f} ms ({rec['ms_graph']:.4f}"
+        f" in a graph, {rec['ms_l2_flushed']:.4f} L2-flushed), plain "
+        f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']}), |da| {d_a:.2e}")
+    return rec
+
+
+def phase_kernel_iterate(pair_in, fleet_in, flush, config):
+    """K4 (lk_iterate.lk_iterate) against its plain version on the three
+    calls ``lk_track_pyr(impl="pallas")`` makes at T = 384 (a) and
+    T = 6144 (b)."""
+    from mqslam_tpu_torch.ops import lk, lk_iterate
+    inputs = {}
+    for key, (args, kw) in (("a", pair_in), ("b", fleet_in)):
+        rec = record_calls(lk_iterate, "lk_iterate", lambda: lk.lk_track_pyr(
+            *args, impl="pallas", **kw))
+        require(len(rec) == config.lk_levels, "expected one call per level")
+        inputs[key] = sum_levels([
+            hold_iterate(a, flush, 1e-4) for a, _ in rec])
+    a = inputs["a"]
+    return dict(
+        name="lk_iterate", route="cuda",
+        source="mqslam_tpu_torch/csrc/lk_iterate.cu",
+        replaces="mqslam_tpu/ops/lk_pallas.py:129", launches=None,
+        max_abs_err=max(v["max_abs_err"] for v in inputs.values()),
+        ms=a["ms"], ms_graph=a["ms_graph"], ms_l2_flushed=a["ms_l2_flushed"],
+        plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+        bound_by=a["bound_by"], library_ms=None,
+        note="top-level numbers are input (a): the three level calls of one "
+             "impl='pallas' LK call at T = 384 on the bench's 640x480 pair; "
+             "inputs.b the fleet's T = 6144 atlas; compared on the tracks "
+             "whose min_eig passes the driver's 1e-4 gate; " + TIMING_NOTE,
         inputs=inputs)
 
 
@@ -629,6 +849,111 @@ def phase_single_agent(single, config, device, tile_launches_before):
         launches={"lk_strip": launches, "lk_level": 0}), res, launches
 
 
+def phase_lk_modes(pair_in, fleet_in, config):
+    """The explicit LK modes at T = 384 (the bench's pair) and T = 6144 (the
+    fleet's agent-contiguous atlas): each call with every launch count set to
+    0 just before and read just after (``impl="xla"``: 6 extraction
+    launches, ``impl="pallas"``: 3 Newton-loop launches, no other kernel);
+    xla (extraction kernel) held against ``impl="fused"`` by the JAX
+    package's bounds for the extractor (at least 90 % of the tracks handed
+    in valid in both, max 0.05 px, median 0.01 px), pallas against xla with
+    the square extraction (status equal, 2e-3 px); each mode's time per
+    call, and xla's with the early exit of its Newton loop replaced by all
+    iterations (same numbers, bit for bit).  Returns (record, extraction
+    launches, Newton-loop launches)."""
+    from mqslam_tpu_torch.ops import extract, lk, lk_fused, lk_iterate, \
+        lk_tile
+    counters = {"extract": extract, "lk_iterate": lk_iterate,
+                "lk_strip": lk_fused, "lk_level": lk_tile}
+    total = {k: 0 for k in counters}
+
+    def counted(run, expect):
+        for m in counters.values():
+            m.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        got = {k: m.launches for k, m in counters.items()}
+        want = {k: expect.get(k, 0) for k in counters}
+        require(got == want, f"launches {got}, expected {want}")
+        for k in total:
+            total[k] += got[k]
+        return out
+
+    n_lvl = config.lk_levels
+    rec = {}
+    for args, kw in (pair_in, fleet_in):
+        key = f"T{int(args[2].shape[0])}"
+        run = lambda impl, **o: lk.lk_track_pyr(*args, impl=impl, **kw, **o)
+        xla = counted(lambda: run("xla"), {"extract": 2 * n_lvl})
+        pal = counted(lambda: run("pallas"), {"lk_iterate": n_lvl})
+        fused = run("fused")
+        square = run("xla", dma_extract=False)
+        n_in = int(args[3].sum()) if len(args) > 3 else int(args[2].shape[0])
+        for name, out in (("xla", xla), ("pallas", pal), ("fused", fused)):
+            ok = out[1]
+            require(bool(torch.isfinite(out[0][ok]).all()),
+                    f"{name}: non-finite tracks")
+        both = xla[1] & fused[1]
+        dq = (xla[0] - fused[0])[both].abs()
+        require(int(both.sum()) >= 0.9 * n_in,
+                f"{key}: {int(both.sum())} of {n_in} valid in xla and fused")
+        d_max, d_med = float(dq.max()), float(dq.median())
+        require(d_max < 0.05 and d_med < 0.01,
+                f"{key}: xla vs fused: max {d_max}, median {d_med} px")
+        require(torch.equal(pal[1], square[1]),
+                f"{key}: pallas and xla (square patches) differ in status")
+        d_pal = float((pal[0] - square[0])[pal[1]].abs().max())
+        require(d_pal <= 2e-3, f"{key}: pallas vs xla: {d_pal} px")
+        ms = {impl: time_each_ms(lambda: run(impl), reps=5)
+              for impl in ("xla", "pallas")}
+        ms["xla_square"] = time_each_ms(lambda: run("xla",
+                                                    dma_extract=False),
+                                        reps=5)
+        # the early exit's host read per Newton iteration against running
+        # all iterations with the done tracks frozen
+        real = lk._all_done
+        lk._all_done = lambda done: False
+        try:
+            full = run("xla")
+            ms["xla_all_iterations"] = time_each_ms(lambda: run("xla"),
+                                                    reps=5)
+        finally:
+            lk._all_done = real
+        require(all(bool(((x == y) | (x.isnan() & y.isnan())).all())
+                    for x, y in zip(full, xla)),
+                f"{key}: xla with all iterations changed the result")
+        rec[key] = dict(
+            T=int(args[2].shape[0]), valid_in=n_in,
+            valid={"xla": int(xla[1].sum()), "pallas": int(pal[1].sum()),
+                   "fused": int(fused[1].sum())},
+            xla_vs_fused_max_px=d_max, xla_vs_fused_median_px=d_med,
+            pallas_vs_xla_square_max_px=d_pal, ms_per_call=ms)
+        log(f"lk_modes {key}: " + ", ".join(f"{k} {v:.3f} ms"
+                                            for k, v in ms.items()))
+    rec["launches"] = total
+    rec["note"] = ("ms_per_call: median of 5 calls, each between its own "
+                   "pair of CUDA events (host gaps inside count); "
+                   "xla_all_iterations: the Newton loop without its "
+                   "per-iteration host read")
+    return rec, total["extract"], total["lk_iterate"]
+
+
+def phase_bench(pair, device):
+    """The port bench's LK section (four impls, 384 tracks, the bench's
+    640x480 pair, 30 calls, best of 3) and triangulation section (four
+    methods, N = 65536) once at their full sizes."""
+    from mqslam_tpu_torch import bench
+    lk_ms = bench.bench_lk_impls(pair, device=device)
+    tri = bench.bench_triangulation(device=device)
+    require(all(np.isfinite(v) and v > 0 for v in lk_ms.values())
+            and set(lk_ms) == set(bench.LK_IMPLS), f"lk_per_call_ms {lk_ms}")
+    require(all(np.isfinite(v) and v > 0 for v in tri.values()),
+            f"triangulation {tri}")
+    log(f"bench: LK ms per call {lk_ms}")
+    return dict(lk_per_call_ms=lk_ms, triangulation_mpts_per_s=tri,
+                efficiency=bench.lk_efficiency(lk_ms))
+
+
 def compare_dumps(a, b, skip=(), atol=1e-6):
     """Two BAData hold the same factor graph (floats to ``atol``)."""
     from mqslam_tpu_torch import convert
@@ -708,18 +1033,26 @@ def phase_cli(single, res, device):
 def phase_cuda_vs_cpu(device):
     """The port on the card against itself on the CPU, the same injected
     RANSAC draws: the multi-agent runner (A = 2, 320x240, 128 tracks, 6
-    frames) and the single-agent ``run_frontend`` on agent 0's sequence."""
+    frames), the single-agent ``run_frontend`` on agent 0's sequence, and
+    the explicit LK modes on the pair's first LK call (``impl="xla"`` with
+    the extraction kernel on both sides, ``impl="pallas"``)."""
     from mqslam_tpu_torch.frontend import tracker as trk
     from mqslam_tpu_torch.frontend.runner import run_frontend
+    from mqslam_tpu_torch.ops import lk
 
     config = trk.TrackerConfig(max_tracks=128, target_keypoints=100)
     seqs, _ = render_all(2, 6, (320, 240), 250.0, workers=2)
     scores = np.random.RandomState(0).uniform(
         size=(5, 2, config.ransac_hypotheses, config.max_tracks)
     ).astype(np.float32)
-    res, single = {}, {}
+    res, single, modes = {}, {}, {}
     for dev in ("cpu", device):
         cal, states, imgs = bootstrap_fleet(seqs, config, dev)
+        args, kw = fleet_lk_inputs(states, imgs, config)
+        modes[str(dev)] = {
+            impl: [x.cpu() for x in lk.lk_track_pyr(*args, impl=impl, **kw,
+                                                    **o)]
+            for impl, o in (("xla", dict(dma_extract=True)), ("pallas", {}))}
         run = trk.make_multi_agent_runner(cal, config, device=dev)
         _, outs = run(states, imgs, ransac_scores=scores)
         res[str(dev)] = [x.cpu().numpy() for x in outs]
@@ -742,11 +1075,36 @@ def phase_cuda_vs_cpu(device):
     d_p = float(max(np.abs(a - b).max()
                     for a, b in zip(s_c.poses, s_g.poses)))
     require(d_p <= 2e-3, f"single agent: poses differ by {d_p}")
+    lk_modes = {}
+    for impl in ("xla", "pallas"):
+        (q_c, st_c, _), (q_g, st_g, _) = (modes[k][impl]
+                                          for k in ("cpu", str(device)))
+        require(torch.equal(st_c, st_g) and bool(st_g.any()),
+                f"{impl}: status differs between card and CPU")
+        d_q = float((q_c - q_g)[st_g].abs().max())
+        require(d_q <= 2e-3, f"{impl}: flows differ by {d_q} px")
+        lk_modes[impl] = dict(T=int(st_g.shape[0]), valid=int(st_g.sum()),
+                              flow_max_abs_diff=d_q, atol=2e-3)
     return dict(agents=2, size=[320, 240], frames=6,
                 accepted=acc_g.tolist(), tvec_max_abs_diff=d_t,
                 rvec_max_abs_diff=d_r, atol=2e-3,
                 single_agent=dict(accepted=s_g.accepted,
-                                  pose_max_abs_diff=d_p, atol=2e-3))
+                                  pose_max_abs_diff=d_p, atol=2e-3),
+                lk_modes=lk_modes)
+
+
+def registers(nvcc_log):
+    """{kernel entry: registers} from ``nvcc -Xptxas -v`` output."""
+    out, entry = {}, None
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry] = int(m.group(1))
+            entry = None
+    return out
 
 
 def main():
@@ -776,33 +1134,50 @@ def main():
         "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "kernels_built": sorted(logs),
-        "kernel_build_seconds": csrc.last_build_seconds}})
+        "kernel_build_seconds": csrc.last_build_seconds,
+        "registers": {k: registers(v) for k, v in logs.items()}}})
     print(smi, flush=True)
 
+    from mqslam_tpu_torch.frontend import synthetic
     config = trk.TrackerConfig()
     try:
         log("bootstrapping 16 agents")
         cal, states, imgs = bootstrap_fleet(seqs, config, device)
+        fleet_in = fleet_lk_inputs(states, imgs, config)
+        # the bench's LK pair: the first two frames of its sequence
+        pair = synthetic.build_sequence(frames=slice(0, 2))[0]
+        pair_in = pair_lk_inputs(pair, device)
         flush = torch.empty(64 << 20, dtype=torch.float32,
                             device=device)                       # 256 MB
         log("phase kernels: tile")
-        k1, tile_calls, tile_outs = phase_kernel_tile(states, imgs, config,
+        k1, tile_calls, tile_outs = phase_kernel_tile(fleet_in, config,
                                                       flush)
         log("phase kernels: strip")
         k2 = phase_kernel_strip(single, config, tile_calls, tile_outs, flush,
                                 device)
-        del flush, tile_calls, tile_outs
+        del tile_calls, tile_outs
+        log("phase kernels: extract")
+        k3 = phase_kernel_extract(pair_in, fleet_in, flush)
+        log("phase kernels: iterate")
+        k4 = phase_kernel_iterate(pair_in, fleet_in, flush, config)
+        del flush
         log("phase main_path (16 agents)")
         main_path, k1["launches"] = phase_main_path(cal, config, states,
                                                     imgs, seqs, device)
         log("phase single_agent")
         single_agent, res, k2["launches"] = phase_single_agent(
             single, config, device, k1["launches"])
-        emit({"kernels": [k1, k2]})
+        log("phase lk_modes")
+        lk_modes, k3["launches"], k4["launches"] = phase_lk_modes(
+            pair_in, fleet_in, config)
+        emit({"kernels": [k1, k2, k3, k4]})
         emit({"main_path": main_path})
         emit({"single_agent": single_agent})
+        emit({"lk_modes": lk_modes})
         log("phase cli")
         emit({"cli": phase_cli(single, res, device)})
+        log("phase bench")
+        emit({"bench": phase_bench(pair, device)})
         log("phase cuda_vs_cpu")
         emit({"cuda_vs_cpu": phase_cuda_vs_cpu(device)})
     except PhaseFailed as e:

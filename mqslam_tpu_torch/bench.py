@@ -1,0 +1,443 @@
+"""Benchmark of the port: SLAM front-end throughput on one CUDA device.
+
+    python -m mqslam_tpu_torch.bench
+
+Prints ONE JSON line, as the JAX package's ``bench.py`` does, with the same
+``metric`` (``slam_frontend_aggregate_frames_per_s_per_chip``), ``value``,
+``unit`` and ``vs_baseline``, and the ``extra`` keys of its sections that
+the port has the modules for:
+
+* the headline: aggregate frames/s of the divergent fleet
+  (``make_multi_agent_runner``: A independent agents, 640x480, 33 frames,
+  ``TrackerConfig()`` defaults), swept over A = 1, 2, 4, 8, 16, 32 until
+  tracking breaks down (A = 1 is the single-agent ``make_scan_runner``);
+* the cloned fleet (one state and one sequence broadcast to A = 8, 16);
+* LK per call, 384 tracks on the 640x480 pair, for each of the four impls
+  (``xla`` over the extraction kernel, ``pallas`` over the Newton-loop
+  kernel, ``fused``, ``tiled``): 30 calls feeding the flow back, best of 3,
+  host clock closed by a synchronize;
+* the LK call's bytes against the card's memory rate (``efficiency``);
+* two-view triangulation throughput, four methods, N = 65536;
+* ``vs_baseline``: OpenCV's per-frame ladder on the host's CPU where cv2
+  imports, else 30 frames/s (real time).
+
+The JAX bench's BA, corridor-CG and loop-closure sections are left out of
+``extra`` (their modules are not ported yet: ``NOT_PORTED``); the log on
+stderr names each.  Every function takes ``device=`` (None: the CUDA
+device), so the tests run them on the CPU at tiny sizes; a time from a CPU
+run is not a device figure.
+"""
+
+import concurrent.futures
+import json
+import multiprocessing
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from mqslam_tpu_torch import convert, resolve_device
+from mqslam_tpu_torch.frontend import synthetic, tracker as trk
+from mqslam_tpu_torch.ops import features, lk
+from mqslam_tpu_torch.ops import triangulation as tri
+
+__all__ = ["render_fleet", "bench_single", "bench_multi",
+           "bench_multi_divergent", "lk_pair_inputs", "bench_lk_impls",
+           "lk_efficiency",
+           "bench_triangulation", "bench_opencv_baseline", "summary",
+           "main"]
+
+METRIC = "slam_frontend_aggregate_frames_per_s_per_chip"
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+NOT_PORTED = (
+    ("bench_ba_iters", "ba_lm_iterations_per_s*, ba_incremental_steps_per_s",
+     "ROADMAP Queue 1 item 9 (BA main path)"),
+    ("bench_corridor_cg", "corridor_cg, efficiency.cg_*",
+     "ROADMAP Queue 1 item 11 (BA at scale)"),
+    ("bench_loopclosure", "loop_closure", "ROADMAP Queue 1 item 13 (loop "
+     "closure)"),
+)
+LK_IMPLS = ("xla", "pallas", "fused", "tiled")
+
+_T0 = time.perf_counter()
+
+
+def _log(msg):
+    print(f"[bench +{time.perf_counter() - _T0:7.1f}s] {msg}",
+          file=sys.stderr, flush=True)
+
+
+def _timed(fn, device):
+    """Host seconds of ``fn()``, closed by a synchronize on the card."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+def _best(fn, device, repeats):
+    return min(_timed(fn, device) for _ in range(repeats))
+
+
+def _generator(device):
+    """The RANSAC draws of every timed run: one seed, so repeats agree."""
+    return torch.Generator(device=device).manual_seed(0)
+
+
+def _render(params):
+    return synthetic.build_sequence(**params)
+
+
+def render_fleet(A, n_frames=33, size=(640, 480), f=500.0, plane_z=4.0,
+                 workers=8):
+    """``synthetic.build_divergent_fleet(A)``, the agents rendered in
+    ``workers`` processes (NumPy; about 2.5 s per 640x480 agent)."""
+    params = synthetic.divergent_fleet_params(A, n_frames, size, f, plane_z)
+    if workers <= 1:
+        return [_render(p) for p in params]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(workers, A), mp_context=ctx) as pool:
+        return list(pool.map(_render, params))
+
+
+def _bootstrap_state(imgs, P_list, f, size, plane_z, device=None,
+                     config=None):
+    """One agent bootstrapped on its first frame from 128 detected corners
+    back-projected onto the known plane."""
+    device = resolve_device(device)
+    cal = convert.cal_from_numpy(
+        [f, f, 0.0, size[0] / 2, size[1] / 2, 0, 0, 0, 0], device=device)
+    config = config or trk.TrackerConfig()
+    uv, valid = features.detect_corners(
+        torch.as_tensor(imgs[0]).to(device), max_corners=160, cell=14)
+    uv = uv[valid][:128].cpu().numpy()
+    objp = synthetic.backproject_to_plane(uv, P_list[0], f,
+                                          (size[0] / 2, size[1] / 2),
+                                          plane_z)
+    state = trk.bootstrap(uv.astype(np.float32), objp.astype(np.float32),
+                          cal, imgs[0], config, device=device)
+    return cal, config, state
+
+
+def bench_single(cal, config, state, imgs, repeats=3, device=None):
+    """One agent through ``make_scan_runner``: (frames/s, tracked, total)."""
+    device = resolve_device(device)
+    run = trk.make_scan_runner(cal, config, device=device)
+    imgs_dev = torch.as_tensor(imgs).to(device)
+    once = lambda: run(state, imgs_dev, generator=_generator(device))
+    _log("single-agent warm-up run")
+    _, (accepted, _, _) = once()
+    n = imgs.shape[0] - 1
+    best = _best(once, device, repeats)
+    return n / best, int((accepted > 0).sum()), n
+
+
+def _fleet_run(cal, config, states, imgs_dev, repeats, device):
+    run = trk.make_multi_agent_runner(cal, config, device=device)
+    once = lambda: run(states, imgs_dev, generator=_generator(device))
+    _, (accepted, _, _) = once()
+    A, n = imgs_dev.shape[0], imgs_dev.shape[1] - 1
+    best = _best(once, device, repeats)
+    return A * n / best, int((accepted > 0).sum()), A * n
+
+
+def bench_multi(cal, config, state, imgs, A, repeats=3, device=None):
+    """Cloned fleet: ONE state and ONE sequence broadcast to all A agents
+    (a comparison row; keyframe phases coincide).  (aggregate frames/s,
+    tracked, total)."""
+    device = resolve_device(device)
+    states = trk.TrackerState(*(x[None].expand((A,) + x.shape).contiguous()
+                                for x in state))
+    imgs_dev = torch.as_tensor(imgs).to(device)[None].expand(
+        (A,) + imgs.shape).contiguous()
+    _log(f"cloned fleet A={A}")
+    return _fleet_run(cal, config, states, imgs_dev, repeats, device)
+
+
+def bench_multi_divergent(cal, config, A, repeats=3, device=None,
+                          seqs=None, states=None):
+    """Divergent fleet (the headline): A independent agents
+    (``render_fleet``), each bootstrapped on its own first frame.  ``seqs``
+    / ``states`` may hold more agents, already rendered / bootstrapped; the
+    first A are taken.  (aggregate frames/s, tracked, total)."""
+    device = resolve_device(device)
+    seqs = render_fleet(A) if seqs is None else seqs
+    if states is None:
+        states = [_bootstrap_state(*s, device=device, config=config)[2]
+                  for s in seqs[:A]]
+    stacked = trk.TrackerState(*(torch.stack(x)
+                                 for x in zip(*states[:A])))
+    imgs_dev = torch.as_tensor(np.stack([s[0] for s in seqs[:A]])).to(device)
+    _log(f"divergent fleet A={A}")
+    return _fleet_run(cal, config, stacked, imgs_dev, repeats, device)
+
+
+def lk_pair_inputs(imgs, n_tracks=384, device=None):
+    """The LK section's inputs: ``n_tracks`` uniform random tracks (seed 1)
+    at least 40 px inside the first frame, and the padded 3-level pyramids
+    of the first two frames.  Returns (pts, pyr_a, pyr_b)."""
+    device = resolve_device(device)
+    H, W = imgs.shape[1:]
+    rng = np.random.RandomState(1)
+    pts = torch.tensor(np.stack([rng.uniform(40, W - 40, n_tracks),
+                                 rng.uniform(40, H - 40, n_tracks)], 1),
+                       dtype=torch.float32, device=device)
+    pad = lk.lk_pad()
+    pyr = lambda im: lk.build_pyramid(torch.as_tensor(im).to(device), 3,
+                                      pad=pad)
+    return pts, pyr(imgs[0]), pyr(imgs[1])
+
+
+def bench_lk_impls(imgs, n_scan=30, repeats=3, n_tracks=384, device=None):
+    """ms per ``lk_track_pyr`` call of each impl on one image pair
+    (``lk_pair_inputs``): ``n_scan`` calls feeding the flow back (each
+    call's input depends on the last one's output; the displacement stays
+    tiny), best of ``repeats``, host clock closed by a synchronize."""
+    device = resolve_device(device)
+    pts, pyr_a, pyr_b = lk_pair_inputs(imgs, n_tracks, device)
+    out = {}
+    for impl in LK_IMPLS:
+        def run():
+            p = pts
+            for _ in range(n_scan):
+                q, _, _ = lk.lk_track_pyr(pyr_a, pyr_b, p, prepad=True,
+                                          impl=impl)
+                p = p + 0.001 * (q - p)
+            return p
+
+        run()
+        out[impl] = _best(run, device, repeats) * 1e3 / n_scan
+    return out
+
+
+def lk_efficiency(lk_ms, size=(640, 480), levels=3, n_tracks=384, win=21,
+                  margin=7):
+    """The bytes one LK call of the ``tiled`` kernel (else ``fused``) must
+    move, against the card's memory rate: per level the smaller of (every
+    track's template and search region) and (both level images whole), plus
+    49 bytes of corners, anchors, flag and outputs per track, as
+    ``chip_smoke.lk_level_bound`` counts them."""
+    ms = lk_ms.get("tiled", lk_ms.get("fused"))
+    if not isinstance(ms, (int, float)):
+        return {}
+    pad = lk.lk_pad(win, margin)
+    P = win + 2 * margin + 1
+    total = 0
+    for lvl in range(levels):
+        Hp = (size[1] >> lvl) + 2 * pad
+        Wp = (size[0] >> lvl) + 2 * pad
+        region = n_tracks * ((win + 3) ** 2 + P * P) * 4
+        total += min(region, 2 * Hp * Wp * 4) + n_tracks * 49
+    sol_ms = total / HBM_BYTES_PER_S * 1e3
+    return {"lk_bytes_moved_mb": total / 1e6, "lk_hbm_sol_ms": sol_ms,
+            "lk_x_over_hbm_sol": ms / sol_ms}
+
+
+def bench_triangulation(n_scan=20, repeats=3, N=65536, device=None):
+    """Two-view triangulation throughput (Mpoints/s) of the four methods:
+    ``n_scan`` calls, each fed a term of the last one's output, best of
+    ``repeats``.  ``cv2_linear_eigen_mps`` is cv2.triangulatePoints on the
+    host's CPU over the same batch, where cv2 imports."""
+    device = resolve_device(device)
+    rng = np.random.RandomState(3)
+    X = rng.uniform(-4, 4, (N, 3)) + np.array([0, 0, 10.0])
+    P1 = np.eye(4)
+    P2 = np.eye(4)
+    ang = 0.12
+    P2[:3, :3] = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                           [-np.sin(ang), 0, np.cos(ang)]])
+    P2[:3, 3] = [-5.0, 0.3, 0.2]
+
+    def project(P):
+        Xc = X @ P[:3, :3].T + P[:3, 3]
+        return (Xc[:, :2] / Xc[:, 2:3]).astype(np.float32)
+
+    u1 = project(P1) + rng.normal(0, 0.8 / 500, (N, 2)).astype(np.float32)
+    u2 = project(P2) + rng.normal(0, 0.8 / 500, (N, 2)).astype(np.float32)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    u1d, u2d, P1d, P2d = t(u1), t(u2), t(P1), t(P2)
+
+    out = {}
+    for name in ("linear_eigen", "linear_ls", "iterative_ls", "optimal"):
+        method = getattr(tri, name)
+
+        def run():
+            c = torch.zeros((), device=device)
+            for _ in range(n_scan):
+                x, _ = method(u1d + c * 1e-30, P1d, u2d, P2d)
+                c = c + torch.sum(x) * 1e-30
+            return c
+
+        run()
+        out[name + "_mps"] = N * n_scan / _best(run, device, repeats) / 1e6
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            cv2.triangulatePoints(np.ascontiguousarray(P1[:3]),
+                                  np.ascontiguousarray(P2[:3]),
+                                  u1.T.astype(np.float64),
+                                  u2.T.astype(np.float64))
+        out["cv2_linear_eigen_mps"] = N * reps / (time.perf_counter() - t0) \
+            / 1e6
+    out["batch"] = N
+    return out
+
+
+def bench_opencv_baseline(imgs, P_list, f, size, plane_z, passes=2):
+    """The per-frame kernel ladder of the system the JAX package was
+    modelled on, through OpenCV on the host's CPU (calcOpticalFlowPyrLK,
+    solvePnPRansac, solvePnP, findHomography, goodFeaturesToTrack): the best
+    frames/s of ``passes``, or None where cv2 does not import."""
+    best = None
+    for _ in range(passes):
+        fps = _opencv_ladder_once(imgs, P_list, f, size, plane_z)
+        if fps is None:
+            return None
+        best = fps if best is None else max(best, fps)
+    return best
+
+
+def _opencv_ladder_once(imgs, P_list, f, size, plane_z):
+    try:
+        import cv2
+    except ImportError:
+        return None
+    K = np.array([[f, 0, size[0] / 2], [0, f, size[1] / 2], [0, 0, 1.0]])
+    dist = np.zeros(4)
+    img0 = imgs[0].astype(np.uint8)
+    pts = cv2.goodFeaturesToTrack(img0, 300, 0.01, 12).reshape(-1, 2)
+    objp = synthetic.backproject_to_plane(pts, P_list[0], f,
+                                          (size[0] / 2, size[1] / 2),
+                                          plane_z).astype(np.float32)
+    prev = img0
+    prev_pts = pts.astype(np.float32)
+    t0 = time.perf_counter()
+    n = 0
+    for i in range(1, imgs.shape[0]):
+        cur = imgs[i].astype(np.uint8)
+        new_pts, st, err = cv2.calcOpticalFlowPyrLK(prev, cur, prev_pts,
+                                                    None)
+        ok = (st.reshape(-1) == 1) & (err.reshape(-1) < 12)
+        if ok.sum() >= 8:
+            sel = np.flatnonzero(ok)
+            try:
+                _, rvec, tvec, inl = cv2.solvePnPRansac(
+                    objp[sel], new_pts[sel], K, dist, reprojectionError=2.0)
+                if inl is not None and len(inl) >= 8:
+                    cv2.solvePnP(objp[sel][inl.reshape(-1)],
+                                 new_pts[sel][inl.reshape(-1)], K, dist,
+                                 rvec, tvec, useExtrinsicGuess=True)
+            except cv2.error:
+                pass
+            cv2.findHomography(prev_pts[sel], new_pts[sel])
+        cv2.goodFeaturesToTrack(cur, 50, 0.01, 12)  # refill detection
+        prev, prev_pts = cur, new_pts
+        n += 1
+    return n / (time.perf_counter() - t0)
+
+
+def summary(scaling, cloned, fps1, lk_ms, tri_mps, eff, base, device_info):
+    """The JSON line: the headline is the best point of the divergent
+    sweep."""
+    best_A = max(scaling, key=lambda k: scaling[k])
+    headline = scaling[best_A]
+    return {
+        "metric": METRIC,
+        "value": headline,
+        "unit": "frames/s",
+        "vs_baseline": headline / base,
+        "extra": {
+            "best_A": best_A,
+            "agents_scaling_fps": {str(k): v for k, v in scaling.items()},
+            "cloned_agents_fps": {str(k): v for k, v in cloned.items()},
+            "single_agent_vs_cv2": fps1 / base,
+            "lk_per_call_ms": lk_ms,
+            "triangulation_mpts_per_s": tri_mps,
+            "efficiency": eff,
+            "cv2_ladder_fps_host": base,
+            "device": device_info,
+        },
+    }
+
+
+def _device_info(device):
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        smi = []
+    return {"kind": torch.cuda.get_device_name(device),
+            "count": torch.cuda.device_count(),
+            "nvidia_smi": smi[0].strip() if smi else "unknown",
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+def main():
+    device = resolve_device(None)
+    for name, keys, item in NOT_PORTED:
+        _log(f"left out: {name} ({keys}): not ported yet, {item}")
+    _log("rendering the single-agent sequence and the 32-agent fleet")
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        fleet = ex.submit(render_fleet, 32)
+        imgs, P_list, f, size, plane_z = synthetic.build_sequence()
+        seqs = fleet.result()
+
+    cal, config, state = _bootstrap_state(imgs, P_list, f, size, plane_z,
+                                          device=device)
+    fps1, ok1, n1 = bench_single(cal, config, state, imgs, device=device)
+    _log(f"single-agent: {fps1:.2f} frames/s ({ok1}/{n1} tracked)")
+
+    states = [_bootstrap_state(*s, device=device, config=config)[2]
+              for s in seqs]
+    scaling = {1: fps1}
+    for A in (2, 4, 8, 16, 32):
+        fpsA, okA, nA = bench_multi_divergent(cal, config, A, device=device,
+                                              seqs=seqs, states=states)
+        scaling[A] = fpsA
+        _log(f"A={A} divergent: {fpsA:.2f} aggregate frames/s "
+             f"({okA}/{nA} tracked)")
+        if okA < nA:  # tracking broke down: no bogus point
+            _log(f"A={A}: only {okA}/{nA} tracked; stopping the sweep")
+            break
+
+    cloned = {}
+    for A in (8, 16):
+        fpsA, okA, nA = bench_multi(cal, config, state, imgs, A,
+                                    device=device)
+        cloned[A] = fpsA
+        _log(f"A={A} cloned: {fpsA:.2f} aggregate frames/s "
+             f"({okA}/{nA} tracked)")
+
+    lk_ms = bench_lk_impls(imgs, device=device)
+    _log(f"LK ms per call: {lk_ms}")
+    tri_mps = bench_triangulation(device=device)
+    _log(f"triangulation Mpoints/s: {tri_mps}")
+    eff = lk_efficiency(lk_ms)
+    _log(f"LK against the memory bound: {eff}")
+
+    base = bench_opencv_baseline(imgs, P_list, f, size, plane_z)
+    if base is None:
+        base = 30.0
+        _log("cv2 does not import: baseline = 30 frames/s (real time)")
+    else:
+        _log(f"baseline: cv2 ladder {base:.2f} frames/s on the host's CPU")
+    print(json.dumps(summary(scaling, cloned, fps1, lk_ms, tri_mps, eff,
+                             base, _device_info(device))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,7 +32,7 @@ __global__ void lk_level_kernel(
   const int t = blockIdx.x * kWarpsPerBlock + warp;
   if (t >= T) return;
   const size_t tile = (size_t)(t / (T / A)) * Hp * Wp;
-  lk::track_warp(imgJ + tile, imgI + tile, Hp, Wp, t, cJ, cI, aJ, a0, valid,
+  lk::track_level(imgJ + tile, imgI + tile, Hp, Wp, t, cJ, cI, aJ, a0, valid,
                  a_out, eig_out, err_out, smem + (size_t)warp * warp_floats,
                  win, P, iters, eps, hiX, want_err);
 }

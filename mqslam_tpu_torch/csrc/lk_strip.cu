@@ -38,7 +38,7 @@ __global__ void lk_strip_kernel(
   const int warp = threadIdx.x >> 5;
   const int t = blockIdx.x * kWarpsPerBlock + warp;
   if (t >= n_tracks) return;
-  lk::track_warp(imgJ, imgI, R, Wp, t, cJ, cI, aJ, a0, valid,
+  lk::track_level(imgJ, imgI, R, Wp, t, cJ, cI, aJ, a0, valid,
                  a_out, eig_out, err_out, smem + (size_t)warp * warp_floats,
                  win, P, iters, eps, hiX, want_err);
 }

@@ -1,11 +1,12 @@
 // One Lucas-Kanade track of one pyramid level, computed by one warp.
 //
-// The per-track function the two level kernels share (lk_level.cu for
-// agent-contiguous tracks against per-agent tiles, lk_strip.cu for tracks in
-// any order against the whole level image).  The caller gives the image the
-// track reads (`J`, `I`: row-major, `rows` x `cols`, float or bf16) and
-// corners in THAT image's coordinates; every global read is clamped to
-// [0, rows-1] x [0, cols-1].
+// The per-track function the three LK kernels share: lk_level.cu (agent-
+// contiguous tracks against per-agent tiles) and lk_strip.cu (tracks in any
+// order against the whole level image) through `track_level`, lk_iterate.cu
+// (each track against its own pre-extracted template and search patches)
+// through `track_warp`.  The caller gives the images the track reads (`J`,
+// `I`: row-major, float or bf16, each with its own extent) and corners in
+// THOSE images' coordinates; every global read is clamped to its image.
 //
 // What bounds it on an H100: bytes.  A track touches a (win+3)^2 template
 // region and a P^2 search region (about 7.5 KB of float at win=21, P=36),
@@ -30,10 +31,11 @@
 // Shared memory per warp: max((win+3)^2, P^2) + (win+2)^2 + 2 win^2 floats
 // (10.6 KB at the defaults).
 //
-// Skipped tracks (valid == 0) return a0 with min_eig = err = 0 before any
-// address is formed from their (possibly NaN) anchors or corners.  All
-// shared-memory indices derived from float anchors are clamped to their
-// ranges, so a NaN that appears in flight cannot index out of bounds.
+// Skipped tracks (valid == 0, `track_level`) return a0 with min_eig = err
+// = 0 before any address is formed from their (possibly NaN) anchors or
+// corners.  All indices derived from float anchors are clamped to their
+// ranges (NaN to the low end), so a NaN anchor of a track that does run, or
+// one that appears in flight, cannot index out of bounds.
 
 #pragma once
 
@@ -104,29 +106,22 @@ __device__ __forceinline__ float tap(const float* stage, int P,
   return (1.0f - a.fx) * r0 + a.fx * r1;
 }
 
-// Track t of the level, by the calling warp.  `stage` is the warp's own
+// One track, by the calling warp: the template region at integer corner
+// (cyJ, cxJ) of J (rowsJ x colsJ) with anchor (ayJ, axJ), the search region
+// at (cyI, cxI) of I (rowsI x colsI) with initial anchor (ay, ax).  Every
+// read is clamped to its own image.  Lane 0 writes (ay, ax) to a_out[0..1],
+// min_eig to *eig_out and err to *err_out.  `stage` is the warp's own
 // warp_floats(win, P) floats of shared memory.
 template <typename T>
 __device__ void track_warp(
-    const T* __restrict__ J, const T* __restrict__ I, int rows, int cols,
-    int t, const int* __restrict__ cJ, const int* __restrict__ cI,
-    const float* __restrict__ aJ, const float* __restrict__ a0,
-    const unsigned char* __restrict__ valid,
+    const T* __restrict__ J, int rowsJ, int colsJ, int cyJ, int cxJ,
+    float ayJ, float axJ,
+    const T* __restrict__ I, int rowsI, int colsI, int cyI, int cxI,
+    float ay, float ax,
     float* __restrict__ a_out, float* __restrict__ eig_out,
     float* __restrict__ err_out, float* stage,
     int win, int P, int iters, float eps, float hiX, int want_err) {
   const int lane = threadIdx.x & 31;
-
-  if (valid[t] == 0) {
-    if (lane == 0) {
-      a_out[2 * t] = a0[2 * t];
-      a_out[2 * t + 1] = a0[2 * t + 1];
-      eig_out[t] = 0.0f;
-      err_out[t] = 0.0f;
-    }
-    return;
-  }
-
   const int W2 = win + 2;          // lerped grid side
   const int RJ = win + 3;          // template staging side
   const int n_win = win * win;
@@ -136,19 +131,18 @@ __device__ void track_warp(
   float* dys = dxs + n_win;                           // [win][win]
 
   // ---- template region -> shared ----
-  const float ayJ = aJ[2 * t], axJ = aJ[2 * t + 1];
   const int iyJ = floor_clamped(ayJ, 0, 1 << 20);
   const int ixJ = floor_clamped(axJ, 0, 1 << 20);
   const float fyJ = ayJ - (float)iyJ;
   const float fxJ = axJ - (float)ixJ;
   // corners are clamped before they meet the anchor or a row stride
-  const int rowJ = clampi(cJ[2 * t], 0, rows - 1) + iyJ - 1;
-  const int colJ = clampi(cJ[2 * t + 1], 0, cols - 1) + ixJ - 1;
+  const int rowJ = clampi(cyJ, 0, rowsJ - 1) + iyJ - 1;
+  const int colJ = clampi(cxJ, 0, colsJ - 1) + ixJ - 1;
   for (int e = lane; e < RJ * RJ; e += 32) {
     const int k = e / RJ, m = e - k * RJ;
-    const int r = clampi(rowJ + k, 0, rows - 1);
-    const int c = clampi(colJ + m, 0, cols - 1);
-    stage[e] = px(J + (size_t)r * cols + c);
+    const int r = clampi(rowJ + k, 0, rowsJ - 1);
+    const int c = clampi(colJ + m, 0, colsJ - 1);
+    stage[e] = px(J + (size_t)r * colsJ + c);
   }
   __syncwarp();
 
@@ -188,19 +182,18 @@ __device__ void track_warp(
   __syncwarp();   // everyone is done reading the template staging area
 
   // ---- search region -> shared (over the template staging area) ----
-  const int rowI = clampi(cI[2 * t], 0, rows - 1);
-  const int colI = clampi(cI[2 * t + 1], 0, cols - 1);
+  const int rowI = clampi(cyI, 0, rowsI - 1);
+  const int colI = clampi(cxI, 0, colsI - 1);
   for (int e = lane; e < P * P; e += 32) {
     const int k = e / P, m = e - k * P;
-    const int r = clampi(rowI + k, 0, rows - 1);
-    const int c = clampi(colI + m, 0, cols - 1);
-    stage[e] = px(I + (size_t)r * cols + c);
+    const int r = clampi(rowI + k, 0, rowsI - 1);
+    const int c = clampi(colI + m, 0, colsI - 1);
+    stage[e] = px(I + (size_t)r * colsI + c);
   }
   __syncwarp();
 
   // ---- Newton loop (all lanes hold identical ay, ax) ----
   const int hi_i = (int)hiX;
-  float ay = a0[2 * t], ax = a0[2 * t + 1];
   const float eps2 = eps * eps;
   for (int it = 0; it < iters; ++it) {
     const Anchor a = split_anchor(ay, ax, hi_i);
@@ -232,11 +225,40 @@ __device__ void track_warp(
     err = warp_sum(err) / (float)n_win;
   }
   if (lane == 0) {
-    a_out[2 * t] = ay;
-    a_out[2 * t + 1] = ax;
-    eig_out[t] = min_eig;
-    err_out[t] = err;
+    a_out[0] = ay;
+    a_out[1] = ax;
+    *eig_out = min_eig;
+    *err_out = err;
   }
+}
+
+// Track t of a level whose tracks all read one pair of images (rows x
+// cols), with corners cJ / cI [T][2], anchors aJ / a0 [T][2] and valid [T]:
+// what the two level kernels share.  A skipped track (valid == 0) returns
+// a0 with min_eig = err = 0 before any address is formed from its (possibly
+// NaN) anchors or corners.
+template <typename T>
+__device__ void track_level(
+    const T* __restrict__ J, const T* __restrict__ I, int rows, int cols,
+    int t, const int* __restrict__ cJ, const int* __restrict__ cI,
+    const float* __restrict__ aJ, const float* __restrict__ a0,
+    const unsigned char* __restrict__ valid,
+    float* __restrict__ a_out, float* __restrict__ eig_out,
+    float* __restrict__ err_out, float* stage,
+    int win, int P, int iters, float eps, float hiX, int want_err) {
+  if (valid[t] == 0) {
+    if ((threadIdx.x & 31) == 0) {
+      a_out[2 * t] = a0[2 * t];
+      a_out[2 * t + 1] = a0[2 * t + 1];
+      eig_out[t] = 0.0f;
+      err_out[t] = 0.0f;
+    }
+    return;
+  }
+  track_warp(J, rows, cols, cJ[2 * t], cJ[2 * t + 1], aJ[2 * t],
+             aJ[2 * t + 1], I, rows, cols, cI[2 * t], cI[2 * t + 1],
+             a0[2 * t], a0[2 * t + 1], a_out + 2 * t, eig_out + t,
+             err_out + t, stage, win, P, iters, eps, hiX, want_err);
 }
 
 }  // namespace lk

@@ -20,7 +20,8 @@ from mqslam_tpu_torch.core.smallmat import (  # noqa: F401  (re-exported)
 
 __all__ = [
     "gram", "gram_rhs", "matmul_small", "matvec_small",
-    "solve2x2_sym", "solve3x3_sym", "inv3x3", "solve6x6_spd",
+    "solve2x2_sym", "solve3x3_sym", "inv3x3", "solve3x3", "pinv_solve_sym",
+    "solve6x6_spd",
     "eigh4x4_smallest", "eigh_jacobi", "svdvals3x3",
     "cholesky_small", "cho_solve_small", "smallest_eigvec_spd",
 ]
@@ -83,6 +84,27 @@ def inv3x3(M, eps=1e-30):
         torch.stack([c02, c12, c22], dim=-1),
     ], dim=-2)
     return adjT / det[..., None, None]
+
+
+def solve3x3(M, rhs, eps=1e-30):
+    """Solve general 3x3 systems M @ x = rhs (Cramer via the adjugate)."""
+    return matvec_small(inv3x3(M, eps), rhs)
+
+
+def pinv_solve_sym(N, rhs, sweeps: int = 6, rcond: float = None):
+    """Min-norm least-squares solve of symmetric systems by the eigen
+    pseudo-inverse: x = V diag(1/w if |w| > rcond*|w|max else 0) V^T rhs
+    (cv2.solve(..., DECOMP_SVD) semantics, rank-deficient systems
+    included, where the adjugate formula would blow up)."""
+    if rcond is None:
+        rcond = 32.0 * torch.finfo(N.dtype).eps
+    w, V = eigh_jacobi(N, sweeps=sweeps)
+    wmax = torch.amax(torch.abs(w), dim=-1, keepdim=True)
+    ok = torch.abs(w) > rcond * torch.clamp(wmax, min=1e-30)
+    inv_w = torch.where(ok, 1.0 / torch.where(ok, w, torch.ones_like(w)),
+                        torch.zeros_like(w))
+    tmp = torch.sum(V * rhs[..., :, None], dim=-2)      # V^T rhs
+    return matvec_small(V, inv_w * tmp)
 
 
 def solve6x6_spd(N, rhs, eps=1e-30):

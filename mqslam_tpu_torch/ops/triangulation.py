@@ -1,22 +1,28 @@
 """Batched two-view triangulation.
 
-What the keyframe phase of the front-end uses: ``linear_eigen`` (homogeneous
-DLT, smallest eigenvector of A^T A) and ``optimal`` (Lindstrom's closed-form
-two-step epipolar correction, "Triangulation Made Easy", CVPR 2010, followed
-by the DLT).  ``linear_ls`` and ``iterative_ls`` of the JAX package are not
-ported yet.
+The four methods of the JAX package: ``linear_eigen`` (homogeneous DLT,
+smallest eigenvector of A^T A), ``linear_ls`` (inhomogeneous 4x3 least
+squares through the symmetric 3x3 normal equations), ``iterative_ls``
+(Hartley-Sturm depth re-weighting, at most 10 solves, converged points
+frozen) and ``optimal`` (Lindstrom's closed-form two-step epipolar
+correction, "Triangulation Made Easy", CVPR 2010, followed by the DLT).  The
+keyframe phase of the front-end uses ``optimal``.
 
 Inputs are normalized image coordinates ``u1, u2: [..., N, 2]`` and camera
 matrices ``P1, P2: [..., 3+, 4]`` whose batch dims match the points' batch
 dims without the N axis (only the first 3 rows are used, so 4x4 extrinsics
-work directly).  Status is bool, False for non-finite / huge points.
+work directly).  Status: ``linear_eigen`` / ``optimal`` bool, False for
+non-finite / huge points; ``linear_ls`` bool, always True; ``iterative_ls``
+int32 in {1, 0, -1, -2, -3} (converged and in front / not converged /
+behind the first camera / behind the second / behind both).
 """
 
 import torch
 
 from mqslam_tpu_torch.ops import linalg
 
-__all__ = ["linear_eigen", "optimal", "fundamental_from_P"]
+__all__ = ["linear_eigen", "linear_ls", "iterative_ls", "optimal",
+           "fundamental_from_P"]
 
 
 def _prep(P):
@@ -41,6 +47,17 @@ def _rows(u, Pp):
     b1 = -(uy * r2[..., 3] - r1[..., 3])
     b = torch.stack([b0, b1], dim=-1)
     return A, b
+
+
+def _normal_eq(A1, b1, A2, b2, w1, w2):
+    """Weighted normal equations from two cameras' 2x3 row blocks:
+    N = sum_k w_k^2 A_k^T A_k (3x3), rhs = sum_k w_k^2 A_k^T b_k."""
+    w1sq = (w1 * w1)[..., None, None]
+    w2sq = (w2 * w2)[..., None, None]
+    N = linalg.gram(A1) * w1sq + linalg.gram(A2) * w2sq
+    rhs = (linalg.gram_rhs(A1, b1) * w1sq[..., 0]
+           + linalg.gram_rhs(A2, b2) * w2sq[..., 0])
+    return N, rhs
 
 
 def _depth(Pp, x):
@@ -69,6 +86,68 @@ def linear_eigen(u1, P1, u2, P2, max_coordinate_value=1e16):
     cutoff = min(max_coordinate_value, 0.1 / torch.finfo(u1.dtype).eps)
     status = torch.amax(torch.abs(x), dim=-1) <= cutoff
     status = status & torch.all(torch.isfinite(x), dim=-1)
+    return x, status
+
+
+def linear_ls(u1, P1, u2, P2):
+    """Inhomogeneous linear LS (4 equations, 3 unknowns) per point, by the
+    symmetric 3x3 normal equations and their pseudo-inverse."""
+    A1, b1 = _rows(u1, _prep(P1))
+    A2, b2 = _rows(u2, _prep(P2))
+    one = torch.ones(u1.shape[:-1], dtype=u1.dtype, device=u1.device)
+    N, rhs = _normal_eq(A1, b1, A2, b2, one, one)
+    x = linalg.pinv_solve_sym(N, rhs)
+    shape = torch.broadcast_shapes(u1.shape[:-1], x.shape[:-1])
+    return x, torch.ones(shape, dtype=torch.bool, device=u1.device)
+
+
+def iterative_ls(u1, P1, u2, P2, tolerance=3e-5, iterations: int = 10):
+    """Hartley-Sturm iterative LS with cumulative depth re-weighting: each
+    non-converged iteration multiplies each camera's rows by 1/d_new,
+    convergence is |d_new - d| <= tolerance (plus a dtype-aware relative
+    term: float32's normal-equation roundoff floor is ~1e-4 relative) on
+    both depths; at most ``iterations`` solves, converged points frozen."""
+    P1p = _prep(P1)
+    P2p = _prep(P2)
+    A1, b1 = _rows(u1, P1p)
+    A2, b2 = _rows(u2, P2p)
+    n_batch = torch.broadcast_shapes(u1.shape[:-1], A1.shape[:-2])
+    like = dict(dtype=u1.dtype, device=u1.device)
+    x = torch.zeros(n_batch + (3,), **like)
+    d1 = torch.ones(n_batch, **like)
+    d2 = torch.ones(n_batch, **like)
+    w1 = torch.ones(n_batch, **like)
+    w2 = torch.ones(n_batch, **like)
+    conv = torch.zeros(n_batch, dtype=torch.bool, device=u1.device)
+    eps_rel = 2048.0 * torch.finfo(u1.dtype).eps
+    tiny = lambda d: torch.where(torch.abs(d) > 1e-30, d,
+                                 torch.full_like(d, 1e-30))
+    for _ in range(iterations):
+        N, rhs = _normal_eq(A1, b1, A2, b2, w1, w2)
+        x_new = linalg.pinv_solve_sym(N, rhs)
+        x = torch.where(conv[..., None], x, x_new)
+        d1_new = torch.where(conv, d1, _depth(P1p, x))
+        d2_new = torch.where(conv, d2, _depth(P2p, x))
+        tol1 = tolerance + eps_rel * torch.abs(d1_new)
+        tol2 = tolerance + eps_rel * torch.abs(d2_new)
+        conv_now = (torch.abs(d1_new - d1) <= tol1) \
+            & (torch.abs(d2_new - d2) <= tol2)
+        conv = conv | conv_now
+        upd = ~conv
+        w1 = torch.where(upd, w1 / tiny(d1_new), w1)
+        w2 = torch.where(upd, w2 / tiny(d2_new), w2)
+        # a common row scale does not change the solution: renormalize so
+        # the cumulative products neither underflow nor overflow in float32
+        scale = torch.clamp(torch.maximum(torch.abs(w1), torch.abs(w2)),
+                            min=1e-30)
+        w1 = w1 / scale
+        w2 = w2 / scale
+        d1, d2 = d1_new, d2_new
+    front1 = d1 > 0
+    front2 = d2 > 0
+    status = (conv & front1 & front2).to(torch.int32)
+    status = status - (~front1).to(torch.int32)
+    status = status - 2 * (~front2).to(torch.int32)
     return x, status
 
 

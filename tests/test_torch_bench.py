@@ -1,0 +1,110 @@
+"""The port bench (``python -m mqslam_tpu_torch.bench``) on the CPU at tiny
+sizes: every section runs and returns numbers of the right shape, the JSON
+line carries the JAX bench's metric and the ``extra`` keys of the sections
+the port has, and nothing else of the JAX bench.  Times taken here are CPU
+times and mean nothing about the card."""
+
+import json
+import math
+
+import pytest
+import torch
+
+from mqslam_tpu_torch import bench
+from mqslam_tpu_torch.frontend import synthetic, tracker as trk
+
+SIZE, F = (320, 240), 250.0
+
+
+@pytest.fixture(scope="module")
+def setup():
+    seq = synthetic.build_sequence(n_frames=7, size=SIZE, f=F,
+                                   vel=(0.3, 0.05, 0.05))
+    config = trk.TrackerConfig(max_tracks=128, target_keypoints=100)
+    cal, config, state = bench._bootstrap_state(*seq, device="cpu",
+                                                config=config)
+    return seq, cal, config, state
+
+
+def positive(x):
+    return isinstance(x, float) and math.isfinite(x) and x > 0
+
+
+def test_single_and_fleets(setup):
+    (imgs, *_), cal, config, state = setup
+    fps, ok, n = bench.bench_single(cal, config, state, imgs, repeats=1,
+                                    device="cpu")
+    assert positive(fps) and n == 6 and ok == n
+    fps, ok, n = bench.bench_multi(cal, config, state, imgs, 2, repeats=1,
+                                   device="cpu")
+    assert positive(fps) and n == 12 and ok == n
+    seqs = bench.render_fleet(3, n_frames=4, size=SIZE, f=F, workers=1)
+    fps, ok, n = bench.bench_multi_divergent(cal, config, 2, repeats=1,
+                                             device="cpu", seqs=seqs)
+    assert positive(fps) and n == 6 and ok == n
+
+
+def test_lk_impls_and_efficiency(setup):
+    (imgs, *_), *_ = setup
+    lk_ms = bench.bench_lk_impls(imgs, n_scan=2, repeats=1, n_tracks=32,
+                                 device="cpu")
+    assert list(lk_ms) == ["xla", "pallas", "fused", "tiled"]
+    assert all(positive(v) for v in lk_ms.values())
+    eff = bench.lk_efficiency(lk_ms, size=SIZE, n_tracks=32)
+    assert set(eff) == {"lk_bytes_moved_mb", "lk_hbm_sol_ms",
+                        "lk_x_over_hbm_sol"}
+    # per level the smaller of 32 tracks' regions (24^2 + 36^2 floats each)
+    # and both padded level images (the 96 x 116 top level is smaller), plus
+    # 49 bytes per track
+    region = 32 * (24 ** 2 + 36 ** 2) * 4
+    assert eff["lk_bytes_moved_mb"] == pytest.approx(
+        (2 * region + 2 * 96 * 116 * 4 + 3 * 32 * 49) / 1e6)
+    assert eff["lk_x_over_hbm_sol"] == pytest.approx(
+        lk_ms["tiled"] / (eff["lk_bytes_moved_mb"] * 1e6 / 3.35e12 * 1e3))
+    assert bench.lk_efficiency({}) == {}
+
+
+def test_triangulation(setup):
+    out = bench.bench_triangulation(n_scan=2, repeats=1, N=256,
+                                    device="cpu")
+    for name in ("linear_eigen", "linear_ls", "iterative_ls", "optimal"):
+        assert positive(out[name + "_mps"])
+    assert out["batch"] == 256
+    try:
+        import cv2  # noqa: F401
+        assert positive(out["cv2_linear_eigen_mps"])
+    except ImportError:
+        assert "cv2_linear_eigen_mps" not in out
+
+
+def test_json_line(setup):
+    (imgs, P_list, f, size, plane_z), *_ = setup
+    base = bench.bench_opencv_baseline(imgs, P_list, f, size, plane_z,
+                                       passes=1)
+    assert base is None or positive(base)
+    line = json.dumps(bench.summary(
+        {1: 4.0, 2: 7.5, 4: 6.0}, {8: 9.0}, 4.0,
+        {"xla": 1.0, "pallas": 2.0, "fused": 0.5, "tiled": 0.4},
+        {"linear_ls_mps": 3.0}, {"lk_x_over_hbm_sol": 5.0}, 30.0,
+        {"kind": "a card"}))
+    out = json.loads(line)
+    assert out["metric"] == "slam_frontend_aggregate_frames_per_s_per_chip"
+    assert out["unit"] == "frames/s"
+    assert out["value"] == 7.5 and out["vs_baseline"] == 0.25
+    extra = out["extra"]
+    assert extra["best_A"] == 2
+    assert extra["agents_scaling_fps"] == {"1": 4.0, "2": 7.5, "4": 6.0}
+    assert set(extra["lk_per_call_ms"]) == {"xla", "pallas", "fused",
+                                            "tiled"}
+    # the sections that are not ported have no key, and no placeholder
+    for key in ("ba_lm_iterations_per_s", "ba_incremental_steps_per_s",
+                "corridor_cg", "loop_closure", "ba_workload"):
+        assert key not in extra
+    assert [n for n, _, _ in bench.NOT_PORTED] == [
+        "bench_ba_iters", "bench_corridor_cg", "bench_loopclosure"]
+
+
+def test_main_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main()

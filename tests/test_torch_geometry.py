@@ -115,6 +115,28 @@ def test_triangulation(rng):
           jt._depth(jt._prep(j[3]), jnp.asarray(xs.numpy())), 1e-5)
 
 
+@pytest.mark.parametrize("name", ["linear_ls", "iterative_ls"])
+def test_triangulation_least_squares(rng, name):
+    """The two least-squares methods (the bench's triangulation section):
+    points to 1e-3 m and status equal, as the DLT methods; iterative_ls'
+    int status in {1, 0, -1, -2, -3}, here with points behind a camera."""
+    pts1, pts2, P1, P2, X = two_view(rng)
+    pts1[:3] *= -1.0                 # mirrored: off the epipolar geometry
+    j = [jnp.asarray(a) for a in (pts1, P1, pts2, P2)]
+    t = [torch.tensor(a) for a in (pts1, P1, pts2, P2)]
+    xj, sj = getattr(jt, name)(*j)
+    xt, st = getattr(tt, name)(*t)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    assert st.dtype == (torch.int32 if name == "iterative_ls" else torch.bool)
+    close(xt, xj, 1e-3)
+    assert np.abs(xt.numpy()[3:] - X[3:]).max() < 0.5
+    if name == "iterative_ls":
+        assert (st.numpy()[3:] == 1).all()
+    # batched poses: [A] cameras against [A, N] points
+    xb, _ = getattr(tt, name)(*(torch.stack([x, x]) for x in t))
+    np.testing.assert_allclose(xb[1].numpy(), xt.numpy(), atol=1e-5)
+
+
 @pytest.mark.parametrize("planar", [False, True])
 def test_pnp_solvers(rng, planar):
     """Minimal-ish clean sets: rotations atol 1e-4, translations 1e-3 (the

@@ -37,11 +37,14 @@ def test_slice_modules_present():
               "ops.pnp", "frontend.synthetic", "frontend.tracker", "convert",
               "csrc", "ops.lk_fused", "frontend.runner", "cli",
               "cli.slam_run", "io", "io.tum", "io.pcd", "io.ba_info",
-              "io.intrinsics", "io.images", "io.nputil"):
+              "io.intrinsics", "io.images", "io.nputil", "ops.extract",
+              "ops.lk_iterate", "bench"):
         assert "mqslam_tpu_torch." + m in mods, m
-    for f in ("lk_level.cu", "lk_strip.cu", "lk_track.cuh"):
+    for f in ("lk_level.cu", "lk_strip.cu", "lk_track.cuh", "extract.cu",
+              "lk_iterate.cu"):
         assert os.path.exists(os.path.join(PKG, "csrc", f))
-    assert csrc.sources() == ["lk_level", "lk_strip"]
+    assert csrc.sources() == ["extract", "lk_iterate", "lk_level",
+                              "lk_strip"]
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
@@ -168,7 +171,7 @@ def test_kernel_build_needs_the_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(csrc, "BUILD_DIR", str(tmp_path / "_build"))
     monkeypatch.setattr(csrc.shutil, "which", lambda _: None)
     monkeypatch.setattr(csrc.os.path, "exists", lambda p: False)
-    for name in ("lk_level", "lk_strip"):
+    for name in csrc.sources():
         with pytest.raises(RuntimeError, match="nvcc"):
             csrc.load(name)
 

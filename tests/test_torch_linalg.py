@@ -151,3 +151,29 @@ def test_near_singular_dlt_minimal_set(rng):
     truth /= np.linalg.norm(truth)
     cos = np.abs(pt @ truth)
     assert np.median(cos) > 0.99 and (cos > 0.9).all(), cos
+
+
+def test_solve3x3(rng):
+    M = rng.randn(24, 3, 3).astype(np.float32) + 2 * np.eye(3, dtype=np.float32)
+    r = rng.randn(24, 3).astype(np.float32)
+    xj = jl.solve3x3(jnp.asarray(M), jnp.asarray(r))
+    xt = tl.solve3x3(torch.tensor(M), torch.tensor(r))
+    close(xt, xj, float(np.abs(np.asarray(xj)).max()), tol=1e-4)
+    np.testing.assert_allclose(np.einsum("bij,bj->bi", M, xt.numpy()), r,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("rank", [3, 2])
+def test_pinv_solve_sym(rng, rank):
+    """Full-rank and rank-2 normal equations (the min-norm answer: the
+    adjugate formula would blow up on the second)."""
+    A = rng.randn(24, 4, rank).astype(np.float32)
+    B = rng.randn(24, rank, 3).astype(np.float32)
+    S = np.einsum("bki,bkj->bij", A @ B, A @ B).astype(np.float32)
+    r = np.einsum("bij,bj->bi", S, rng.randn(24, 3)).astype(np.float32)
+    xj = jl.pinv_solve_sym(jnp.asarray(S), jnp.asarray(r))
+    xt = tl.pinv_solve_sym(torch.tensor(S), torch.tensor(r))
+    close(xt, xj, float(np.abs(np.asarray(xj)).max()), tol=1e-3)
+    assert np.isfinite(xt.numpy()).all()
+    np.testing.assert_allclose(np.einsum("bij,bj->bi", S, xt.numpy()), r,
+                               atol=2e-2 * np.abs(r).max())

@@ -214,7 +214,7 @@ def test_lk_track_fused_matches_jax(pair):
         np.testing.assert_array_equal(a2.numpy()[ok], a.numpy()[ok])
         np.testing.assert_array_equal(s2.numpy(), s.numpy())
     with pytest.raises(ValueError, match="impl"):
-        tlk.lk_track(tb, tm, tp, impl="xla")
+        tlk.lk_track(tb, tm, tp, impl="banded")
     with pytest.raises(ValueError, match="store_dtype"):
         tlk.lk_track(tb, tm, tp, store_dtype="float16")
     with pytest.raises(ValueError, match="float32"):
