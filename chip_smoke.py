@@ -7,14 +7,18 @@ Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
 ``nvcc``, PIL for the command-line phase, and nothing else; imports only
 ``mqslam_tpu_torch``.  It
 
-  1. builds every kernel under ``mqslam_tpu_torch/csrc/`` from source,
+  1. builds every kernel under ``mqslam_tpu_torch/csrc/`` from source and
+     fails if ptxas spilled registers in any of them,
   2. holds each kernel against its plain PyTorch version on the card, at the
      shapes the paths below give it, and times both beside the kernel's
      bound: the tile kernel (``lk_level``) at T = 6144 tracks on 16 tiles;
      the strip kernel (``lk_strip``) at the single-agent path's own shapes in
      float32 (a) and bfloat16 (b), and on the tile kernel's inputs with the
      tracks shuffled and the corners made absolute (c), where it must also
-     agree with the tile kernel's own output; the extraction kernel
+     agree with the tile kernel's own output — both level kernels at each
+     lane shape (32 and 128 threads a track), with their registers and
+     resident warps from the occupancy API, and at a window other than the
+     compiled-in one (``lk_track_pyr(win=15)``); the extraction kernel
      (``extract``) on the calls ``lk_track_pyr(impl="xla")`` makes on the
      bench's 640x480 pair at T = 384 (a) and on the fleet's 16-tile atlas at
      T = 6144 (b), and on corners out of bounds on every side (c), bit-equal
@@ -222,9 +226,10 @@ def time_each_ms(fn, reps=20, warmup=1, flush=None):
     """Median milliseconds of ``reps`` calls, each between its own pair of
     CUDA events (host gaps inside a call count: right for a function that
     synchronizes).  ``flush``, a tensor larger than the L2 cache, is
-    overwritten before every timed call so the call finds the cache cold;
-    the overwrite also lets the host run ahead of the device, so a short
-    kernel's launch latency is hidden as in the back-to-back timing."""
+    overwritten before every timed call so the call finds the cache cold,
+    and the device then spins for about 0.2 ms before the start event, so
+    the host has enqueued the call by the time the event fires: a kernel
+    shorter than its wrapper's host work is timed, not the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -232,6 +237,7 @@ def time_each_ms(fn, reps=20, warmup=1, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+            torch.cuda._sleep(400_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -307,13 +313,22 @@ def record_level_calls(module, run):
             for args, kw in record_calls(module, "lk_level", run)]
 
 
-def hold_level(kernel, plain, args, want_err, flush):
-    """One level call: the kernel against its plain version on the same
-    inputs, both timed, beside the bound.  ``args`` end in ``n_scalars``
-    scalars (..., win, iters, eps, hiX); the tensors before them are imgJ,
-    imgI, cJ, cI, aJ, a0, valid.  Returns (record, kernel outputs)."""
+def hold_level(module, args, want_err, flush, lanes=None):
+    """One level call of ``module`` (``lk_tile`` or ``lk_fused``): the
+    kernel against its plain version on the same inputs, both timed, beside
+    the bound.  ``args`` end in the scalars (..., win, iters, eps, hiX); the
+    tensors before them are imgJ, imgI, cJ, cI, aJ, a0, valid.  ``lanes``
+    forces the threads a track (None: the wrapper's rule).  Returns (record,
+    kernel outputs)."""
+    from mqslam_tpu_torch.ops import lk_tile
     imgJ, a0, valid = args[0], args[5], args[6]
     win, hiX = args[-4], args[-1]
+    P = lk_tile.search_side(win, hiX)
+    T = int(valid.shape[0])
+    used = lk_tile.launch_lanes(T, lk_tile.sm_count(imgJ.device), win, P,
+                                lanes)
+    kernel = lambda *a, **kw: module.lk_level(*a, _lanes=lanes, **kw)
+    plain = module.lk_level_plain
     a_k, eig_k, err_k = kernel(*args, want_err=want_err)
     torch.cuda.synchronize()
     a_p, eig_p, err_p, n_it = plain(*args, want_err=want_err,
@@ -350,12 +365,14 @@ def hold_level(kernel, plain, args, want_err, flush):
     plain_ms = time_each_ms(lambda: call(plain), reps=10)
     rec = dict(
         shape=[int(x) for x in imgJ.shape], dtype=str(imgJ.dtype)[6:],
-        T=int(valid.shape[0]), valid=int(ok.sum()), want_err=bool(want_err),
+        T=T, valid=int(ok.sum()), want_err=bool(want_err), win=win, P=P,
+        instantiation=lk_tile.instantiation(win, P), lanes=used,
         max_abs_err=d_a, min_eig_rel=d_eig, err_abs=d_err, ms=ms,
         ms_graph=graph_ms, ms_l2_flushed=cold_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=by, bound_working=working)
-    log(f"{kernel.__module__.rsplit('.', 1)[-1]} {rec['shape']} "
-        f"{rec['dtype']} T={rec['T']}: kernel {ms:.4f} ms ({graph_ms:.4f} "
+    log(f"{module.__name__.rsplit('.', 1)[-1]} {rec['shape']} "
+        f"{rec['dtype']} T={rec['T']} win={win} lanes={used}: kernel "
+        f"{ms:.4f} ms ({graph_ms:.4f} "
         f"in a graph, {cold_ms:.4f} L2-flushed), plain {plain_ms:.2f} ms, "
         f"bound {bound_ms:.4f} ms "
         f"({by}), |da| {d_a:.2e}")
@@ -387,12 +404,52 @@ TIMING_NOTE = ("ms / plain_ms / bound_ms are sums over the three level "
                "relative, err 1e-2")
 
 
+def hold_lane_shapes(module, calls, flush):
+    """Every level call of ``calls`` held at each lane shape the level
+    kernels have.  Returns ({lanes: summed record}, {lanes: [kernel outputs
+    per call]})."""
+    from mqslam_tpu_torch.ops import lk_tile
+    recs, outs = {}, {}
+    for lanes in lk_tile.LANE_SHAPES:
+        held = [hold_level(module, args, we, flush, lanes)
+                for args, we in calls]
+        recs[lanes] = sum_levels([h[0] for h in held])
+        outs[lanes] = [h[1] for h in held]
+    return recs, outs
+
+
+def rule_lanes(calls):
+    """The lane shape the wrappers' rule picks for these level calls (all of
+    one track count)."""
+    from mqslam_tpu_torch.ops import lk_tile
+    args = calls[0][0]
+    return lk_tile.lanes_per_track(int(args[6].shape[0]),
+                                   lk_tile.sm_count(args[0].device))
+
+
+def with_lane_shapes(recs, rule):
+    """The rule's record, with every lane shape's beside it."""
+    rec = dict(recs[rule], lanes=rule)
+    rec["lane_shapes"] = {str(k): {x: y for x, y in v.items() if x != "levels"}
+                          for k, v in recs.items()}
+    return rec
+
+
+def occupancy(info, main):
+    """The main path's instantiation's registers, shared bytes a track and
+    resident warps a SM at top level, every instantiation's in a list."""
+    top = {k: main[k] for k in ("registers", "shared_bytes_per_track",
+                                "resident_warps_per_sm")}
+    return dict(top, instantiations=info)
+
+
 def phase_kernel_tile(fleet_in, config, flush):
     """K1 (lk_tile.lk_level) against its plain version at the multi-agent
     path's shapes: the three level calls of one frame-group's LK, inputs
     recorded from ``lk_track_pyr`` on two consecutive rendered frames, with
-    inactive and NaN-poisoned slots.  Returns (record, recorded calls, the
-    kernel's outputs per call)."""
+    inactive and NaN-poisoned slots, at each lane shape (32 and 128 threads
+    a track).  Returns (record, recorded calls, {lanes: the kernel's outputs
+    per call})."""
     from mqslam_tpu_torch.ops import lk, lk_tile
 
     lk_args, kw = fleet_in
@@ -400,26 +457,32 @@ def phase_kernel_tile(fleet_in, config, flush):
     recorded = record_level_calls(lk_tile, lambda: lk.lk_track_pyr(*lk_args,
                                                                     **kw))
     require(len(recorded) == config.lk_levels, "expected one call per level")
-    held = [hold_level(lk_tile.lk_level, lk_tile.lk_level_plain, args, we,
-                       flush) for args, we in recorded]
+    recs, outs = hold_lane_shapes(lk_tile, recorded, flush)
+    rule = rule_lanes(recorded)
+    info = [lk_tile.kernel_info(21, 36, n) for n in lk_tile.LANE_SHAPES]
+    info.append(lk_tile.kernel_info(15, 30, 32))
     rec = dict(
         name="lk_level", route="cuda",
         source="mqslam_tpu_torch/csrc/lk_level.cu",
         replaces="mqslam_tpu/ops/lk_tile_pallas.py:234", launches=None,
-        library_ms=None, **sum_levels([h[0] for h in held]),
-        note=f"T = {lk_args[2].shape[0]} tracks, {A} tiles; "
-             + TIMING_NOTE)
-    return rec, recorded, [h[1] for h in held]
+        library_ms=None, **with_lane_shapes(recs, rule),
+        **occupancy(info, info[lk_tile.LANE_SHAPES.index(rule)]),
+        note=f"T = {lk_args[2].shape[0]} tracks, {A} tiles; top-level "
+             f"numbers at the rule's {rule} threads a track, lane_shapes "
+             "at each; " + TIMING_NOTE)
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
+    return rec, recorded, outs
 
 
 def phase_kernel_strip(single, config, tile_calls, tile_outs, flush, device):
-    """K2 (lk_fused.lk_level) against its plain version at three inputs:
-    (a) the single-agent path's own level calls, recorded from
-    ``lk_track_pyr`` on its first frame pair with inactive and NaN-poisoned
-    slots, float32; (b) the same stored in bfloat16; (c) the tile kernel's
-    recorded calls with the tracks in a random order and the corners made
-    absolute, where it must also reproduce the tile kernel's own output.
-    On (a) the tile kernel with one tile is timed beside it."""
+    """K2 (lk_fused.lk_level) against its plain version at three inputs,
+    each at both lane shapes: (a) the single-agent path's own level calls,
+    recorded from ``lk_track_pyr`` on its first frame pair with inactive and
+    NaN-poisoned slots, float32; (b) the same stored in bfloat16; (c) the
+    tile kernel's recorded calls with the tracks in a random order and the
+    corners made absolute, where it must also reproduce the tile kernel's
+    own output at the same lane shape.  On (a) the tile kernel with one tile
+    is timed beside it."""
     from mqslam_tpu_torch.frontend import tracker as trk
     from mqslam_tpu_torch.ops import lk, lk_fused, lk_tile
 
@@ -457,24 +520,27 @@ def phase_kernel_strip(single, config, tile_calls, tile_outs, flush, device):
 
     inputs = {}
     for key, calls in (("a", calls_a), ("b", calls_b), ("c", calls_c)):
-        held = [hold_level(lk_fused.lk_level, lk_fused.lk_level_plain, args,
-                           we, flush) for args, we in calls]
-        inputs[key] = sum_levels([h[0] for h in held])
+        recs, outs = hold_lane_shapes(lk_fused, calls, flush)
+        inputs[key] = with_lane_shapes(recs, rule_lanes(calls))
         if key == "c":
-            # the same tracks through the other kernel: neither clamp binds
-            # on recorded inputs (corners lie inside their tile), so only
-            # the order of nothing differs — equal to 1e-5 px
-            worst = 0.0
-            for (args, _), perm, k2, k1 in zip(calls, perms,
-                                               [h[1] for h in held],
-                                               tile_outs):
-                ok = args[6] != 0
-                for x2, x1 in zip(k2, k1):
-                    worst = max(worst, float(
-                        (x2[ok] - x1[perm][ok]).abs().max()))
-            require(worst <= 1e-5, f"strip and tile kernels differ by "
-                                   f"{worst} on the same tracks")
-            inputs[key]["max_abs_diff_vs_tile_kernel"] = worst
+            # the same tracks through the other kernel at the same lane
+            # shape: neither clamp binds on recorded inputs (corners lie
+            # inside their tile), so only the addressing differs — equal to
+            # 1e-5 px
+            worst = {}
+            for lanes in outs:
+                worst[lanes] = 0.0
+                for (args, _), perm, k2, k1 in zip(calls, perms, outs[lanes],
+                                                   tile_outs[lanes]):
+                    ok = args[6] != 0
+                    for x2, x1 in zip(k2, k1):
+                        worst[lanes] = max(worst[lanes], float(
+                            (x2[ok] - x1[perm][ok]).abs().max()))
+            require(max(worst.values()) <= 1e-5,
+                    f"strip and tile kernels differ by {worst} on the same "
+                    "tracks")
+            inputs[key]["max_abs_diff_vs_tile_kernel"] = {
+                str(k): v for k, v in worst.items()}
     # the tile kernel with ONE tile on input (a): what the auto rule passes
     # over for a single image
     for key, timer in (("ms", time_ms), ("ms_graph", time_graph_ms)):
@@ -487,20 +553,55 @@ def phase_kernel_strip(single, config, tile_calls, tile_outs, flush, device):
             inputs["a"]["ms_graph"], inputs["b"]["ms_graph"],
             inputs["a"]["tile_kernel_one_tile_ms_graph"]))
     a = inputs["a"]
+    info = [lk_fused.kernel_info(21, 36, n, dt)
+            for dt in (torch.float32, torch.bfloat16)
+            for n in lk_tile.LANE_SHAPES]
+    for dt in (torch.float32, torch.bfloat16):
+        info.append(lk_fused.kernel_info(15, 30, 32, dt))
+    for i, dt in zip(info, 2 * ["float32"] + 2 * ["bfloat16"]
+                     + ["float32", "bfloat16"]):
+        i["dtype"] = dt
+    main = info[lk_tile.LANE_SHAPES.index(a["lanes"])]
     return dict(
         name="lk_strip", route="cuda",
         source="mqslam_tpu_torch/csrc/lk_strip.cu",
         replaces="mqslam_tpu/ops/lk_fused_pallas.py:278", launches=None,
-        max_abs_err=max(v["max_abs_err"] for v in inputs.values()),
+        max_abs_err=max(max(r["max_abs_err"]
+                            for r in v["lane_shapes"].values())
+                        for v in inputs.values()),
         ms=a["ms"], ms_graph=a["ms_graph"],
         ms_l2_flushed=a["ms_l2_flushed"], plain_ms=a["plain_ms"],
         bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+        lanes=a["lanes"], **occupancy(info, main),
         note="top-level numbers are input (a): T = "
              f"{int(state.active.shape[0])} tracks on one "
-             f"{SINGLE['size'][0]}x{SINGLE['size'][1]} image, float32; "
-             "inputs.b the same in bfloat16, inputs.c the tile kernel's "
-             "T = 6144 atlas inputs shuffled; " + TIMING_NOTE,
+             f"{SINGLE['size'][0]}x{SINGLE['size'][1]} image, float32, at "
+             "the rule's threads a track; inputs.b the same in bfloat16, "
+             "inputs.c the tile kernel's T = 6144 atlas inputs shuffled, "
+             "each with lane_shapes at both; " + TIMING_NOTE,
         inputs=inputs)
+
+
+def phase_kernel_generic(pair, pair_in, flush, device):
+    """Both level kernels at a window other than the compiled-in one:
+    ``lk_track_pyr(win=15)`` on the bench's pair (unpadded pyramids,
+    ``lk_track_pyr`` pads them) through K1 (``impl="tiled"``) and K2
+    (``impl="fused"``), every level call held against its plain version.
+    Returns {impl: record}."""
+    from mqslam_tpu_torch.ops import lk, lk_fused, lk_tile
+    pts = pair_in[0][2]
+    pyr = lambda im: lk.build_pyramid(torch.as_tensor(im).to(device), 3)
+    pyr_a, pyr_b = pyr(pair[0]), pyr(pair[1])
+    out = {}
+    for module, impl in ((lk_tile, "tiled"), (lk_fused, "fused")):
+        calls = record_level_calls(module, lambda: lk.lk_track_pyr(
+            pyr_a, pyr_b, pts, win=15, impl=impl))
+        require(len(calls) == 3, f"win=15 {impl}: {len(calls)} level calls")
+        held = [hold_level(module, args, we, flush) for args, we in calls]
+        require(all(h[0]["instantiation"] == "generic" for h in held),
+                "win=15 did not run the generic instantiation")
+        out[impl] = sum_levels([h[0] for h in held])
+    return out
 
 
 def fleet_lk_inputs(states, imgs, config):
@@ -1094,17 +1195,22 @@ def phase_cuda_vs_cpu(device):
 
 
 def registers(nvcc_log):
-    """{kernel entry: registers} from ``nvcc -Xptxas -v`` output."""
-    out, entry = {}, None
+    """({kernel entry: registers}, {kernel entry: spill bytes stored +
+    loaded}) from ``nvcc -Xptxas -v`` output."""
+    regs, spills, entry = {}, {}, None
     for line in nvcc_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            spills[entry] = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
-            out[entry] = int(m.group(1))
+            regs[entry] = int(m.group(1))
             entry = None
-    return out
+    return regs, spills
 
 
 def main():
@@ -1130,13 +1236,20 @@ def main():
         logs = build.result()
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
+    ptxas = {k: registers(v) for k, v in logs.items()}
     emit({"device": {
         "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "kernels_built": sorted(logs),
         "kernel_build_seconds": csrc.last_build_seconds,
-        "registers": {k: registers(v) for k, v in logs.items()}}})
+        "registers": {k: v[0] for k, v in ptxas.items()},
+        "spill_bytes": {k: v[1] for k, v in ptxas.items()}}})
     print(smi, flush=True)
+    spilled = {e: n for _, sp in ptxas.values() for e, n in sp.items() if n}
+    if spilled:
+        print(f"chip_smoke: FAILED: ptxas spilled registers: {spilled}",
+              file=sys.stderr)
+        return 1
 
     from mqslam_tpu_torch.frontend import synthetic
     config = trk.TrackerConfig()
@@ -1156,6 +1269,12 @@ def main():
         k2 = phase_kernel_strip(single, config, tile_calls, tile_outs, flush,
                                 device)
         del tile_calls, tile_outs
+        log("phase kernels: generic window (win = 15)")
+        generic = phase_kernel_generic(pair, pair_in, flush, device)
+        for k, impl in ((k1, "tiled"), (k2, "fused")):
+            k["generic_window"] = generic[impl]
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   generic[impl]["max_abs_err"])
         log("phase kernels: extract")
         k3 = phase_kernel_extract(pair_in, fleet_in, flush)
         log("phase kernels: iterate")

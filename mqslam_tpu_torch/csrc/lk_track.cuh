@@ -1,41 +1,85 @@
-// One Lucas-Kanade track of one pyramid level, computed by one warp.
-//
-// The per-track function the three LK kernels share: lk_level.cu (agent-
-// contiguous tracks against per-agent tiles) and lk_strip.cu (tracks in any
-// order against the whole level image) through `track_level`, lk_iterate.cu
-// (each track against its own pre-extracted template and search patches)
-// through `track_warp`.  The caller gives the images the track reads (`J`,
+// One Lucas-Kanade track of one pyramid level: the per-track function the
+// three LK kernels share.  lk_level.cu (K1, agent-contiguous tracks against
+// per-agent tiles; replaces mqslam_tpu/ops/lk_tile_pallas.py::lk_level_tiled)
+// and lk_strip.cu (K2, tracks in any order against the whole level image;
+// replaces mqslam_tpu/ops/lk_fused_pallas.py::lk_level_fused) run it through
+// `track_level_fixed` (the window of the main paths) or `track_level` (any
+// other window); lk_iterate.cu (K4, each track on its own pre-extracted
+// patches) runs `track_warp`.  The caller gives the images a track reads (`J`,
 // `I`: row-major, float or bf16, each with its own extent) and corners in
 // THOSE images' coordinates; every global read is clamped to its image.
 //
-// What bounds it on an H100: bytes.  A track touches a (win+3)^2 template
-// region and a P^2 search region (about 7.5 KB of float at win=21, P=36),
-// each read from device memory once; the Newton loop then re-reads them tens
-// of times.  The arithmetic per byte moved from device memory is small (a
-// few hundred FMAs per track and iteration), so the least time is the time
-// to move the regions (or each image once, when tracks are dense).
+// Per track: stage a (win+3)^2 template region and a P^2 search region, form
+// the lerped template window, its central-difference gradients and the 2x2
+// structure tensor G, then up to `iters` Newton steps of win^2 bilinear taps
+// each, the anchor clipped to [0, hiX], with an exit once |step| < eps.
 //
-// What the design does about it: ONE WARP PER TRACK.  The warp stages the
-// template region into shared memory with row-contiguous reads (bf16 pixels
-// are loaded as scalars and widened to float on the way in, so every sum is
-// float), builds the lerped (win+2)^2 grid C (the template window is C's
-// interior; dx, dy are its central differences) and the 2x2 structure
-// tensor, then stages the search region over the template staging area and
-// runs the Newton loop entirely out of shared memory: every iteration is
-// win^2 bilinear taps spread over the 32 lanes and two warp-shuffle
-// reductions, with a per-warp early exit (converged tracks are frozen in the
-// reference, so leaving the loop gives identical results).  No block-level
-// barrier is needed: warps of a block share nothing.  No tensor cores, TMA
-// or clusters: a simple kernel that is right comes first.
+// What bounds it on an H100.  Not bytes: a track moves 7.5 KB of float once
+// (0.017 ms for the fleet's 6144 tracks at 3.35 TB/s) and the FMAs are a few
+// hundred per tap row.  What held the first design (one warp per track,
+// 10.8 KB of shared memory per warp, everything runtime-sized) 11-36x above
+// that bound was latency and instruction overhead: two dependent device-memory
+// round trips per track (template, then search, 18 + 41 strided loads per
+// lane in loops the compiler could not unroll), integer division by runtime
+// window sides in every inner loop, seven shared loads per tap of which
+// three were loop-invariant, 20 resident warps per SM held by a block's
+// slowest warp, and at T = 384 a card three-quarters empty running one long
+// chain per warp.
 //
-// Shared memory per warp: max((win+3)^2, P^2) + (win+2)^2 + 2 win^2 floats
-// (10.6 KB at the defaults).
+// What this design does (the compile-time path, `track_fixed`):
+//  - WIN and P are template arguments; (21, 36) is the one instantiation the
+//    main paths use (TrackerConfig.lk_win = 21, margin 7).  Every loop has a
+//    fixed trip count per thread and unrolls; every (row, column) split is a
+//    constant division.  Any other (win, P) runs the runtime-sized warp
+//    function below (`track_level`), the generic instantiation.
+//  - A group of LANES threads (32 = one warp, or 128 = four warps) takes a
+//    track.  Each thread owns window elements e = tid + k*LANES (NE of them:
+//    14 at 32 lanes, 4 at 128) for the whole track and keeps, in registers,
+//    their template value, dx, dy and tap offset.  dx and dy come straight
+//    from the staged template region (12 shared loads and 13 lerps per
+//    element, the same arithmetic as the lerped grid), so no grid and no
+//    gradient arrays live in shared memory, and one Newton tap is four shared
+//    loads at an immediate offset from one register and four FMAs (the
+//    bilinear weights, formed once a step, folded into the difference).
+//  - Both regions are requested at once with 4-byte `cp.async` copies into
+//    two buffers, a warp a row and a lane a column (its clamped column
+//    computed once); one wait, one round trip per track.  bf16 pixels cannot
+//    be copied asynchronously at 2 bytes: they are loaded, widened and
+//    stored, four rows in flight at a time.
+//    TMA is not the tool: the regions are 24-36 floats wide at arbitrary
+//    column offsets (not 16-byte aligned), and the reads must clamp to the
+//    tile or image (edge replication), while TMA fills out-of-bounds boxes
+//    with zeros.  Tensor cores are not the tool either: the window sums must
+//    stay in exact f32 (parity needs 2e-3 px and min_eig to 1e-4 relative;
+//    TF32 keeps about three digits), and a tap is four FMAs, not a product.
+//  - The search region's row pitch is SP = 53 floats, not 36: SP = 21 mod 32
+//    puts any 32 consecutive window elements on 32 distinct banks, so the
+//    Newton taps are free of bank conflicts (at pitch 36 half the tap loads
+//    were 2-way).  Shared memory per track: 24*24 + 36*53 = 2484 floats
+//    (9.7 KB), plus 128 B of partial sums for a 128-lane group.
+//  - Scheduling is persistent.  A launch has what the card holds resident
+//    (occupancy API x SM count) and no more blocks than the tracks need; a
+//    32-lane group takes its next track from an atomic counter when it is
+//    done with one (tracks take 1 to 30 Newton steps, so no block waits for
+//    its slowest warp and there is no wave tail), a 128-lane group strides.
+//  - A 128-lane group reduces across its four warps through shared memory
+//    with one named barrier (`bar.sync id, 128`) per reduction and
+//    double-buffered partials, so a Newton step costs one barrier.  All
+//    threads sum the partials in one fixed order, so they hold bit-identical
+//    anchors and leave the loop together.
+//  - Registers (`min_blocks` below): 128 a thread at 32 lanes (16 resident
+//    warps a SM), 64 at 128 lanes (32 warps), no spill; chip_smoke.py reads
+//    them and the resident warps from the occupancy API (`lk_*_info`).
+//  - Not done: prefetching the next track's regions while the current one
+//    iterates.  An L2 prefetch of them (no shared-memory cost) measured no
+//    faster, warm or L2-flushed; a doubled shared buffer would halve the
+//    resident warps.
 //
-// Skipped tracks (valid == 0, `track_level`) return a0 with min_eig = err
-// = 0 before any address is formed from their (possibly NaN) anchors or
-// corners.  All indices derived from float anchors are clamped to their
-// ranges (NaN to the low end), so a NaN anchor of a track that does run, or
-// one that appears in flight, cannot index out of bounds.
+// Skipped tracks (valid == 0) return a0 with min_eig = err = 0 before any
+// address is formed from their (possibly NaN) anchors or corners.  All
+// indices derived from float anchors are clamped to their ranges (NaN to the
+// low end), so a NaN anchor of a track that does run, or one that appears in
+// flight, cannot index out of bounds; NaN survives the anchor clip.
 
 #pragma once
 
@@ -45,6 +89,11 @@
 namespace lk {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBlockThreads = 128;   // every LK level launch: 4 warps a block
+
+// The one compile-time window the main paths use.
+constexpr int kWin = 21;
+constexpr int kP = 36;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -68,13 +117,6 @@ __device__ __forceinline__ float px(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// Floats of shared memory one warp needs.
-__host__ __device__ inline int warp_floats(int win, int P) {
-  const int RJ = win + 3, W2 = win + 2;
-  const int stage = RJ * RJ > P * P ? RJ * RJ : P * P;
-  return stage + W2 * W2 + 2 * win * win;
-}
-
 // False for arguments no launch may take.
 inline bool launch_args_ok(int win, int P, float hiX) {
   return win >= 1 && P >= win + 2 && (int)hiX == P - 2 - win;
@@ -94,6 +136,45 @@ __device__ __forceinline__ Anchor split_anchor(float ay, float ax, int hi_i) {
   a.fy = ay - (float)a.iy;
   a.fx = ax - (float)a.ix;
   return a;
+}
+
+// One Newton update of (ay, ax) from the reduced b; true once converged.
+// The clip is jnp.clip's: NaN stays NaN.
+__device__ __forceinline__ bool newton_update(
+    float b0, float b1, float g00, float g01, float g11, float det,
+    float hiX, float eps2, float& ay, float& ax) {
+  const float sx = (g11 * b0 - g01 * b1) / det;
+  const float sy = (g00 * b1 - g01 * b0) / det;
+  const float ax2 = ax + sx, ay2 = ay + sy;
+  ax = ax2 != ax2 ? ax2 : fminf(fmaxf(ax2, 0.0f), hiX);
+  ay = ay2 != ay2 ? ay2 : fminf(fmaxf(ay2, 0.0f), hiX);
+  return sx * sx + sy * sy < eps2;
+}
+
+// det clamped away from 0 and min_eig = lambda_min(G) / n.
+__device__ __forceinline__ void structure(float g00, float g01, float g11,
+                                          int n, float& det, float& min_eig) {
+  det = g00 * g11 - g01 * g01;
+  det = fabsf(det) > 1e-20f ? det : 1e-20f;
+  const float tr = 0.5f * (g00 + g11);
+  const float dg = g00 - g11;
+  min_eig =
+      (tr - sqrtf(fmaxf(0.25f * dg * dg + g01 * g01, 0.0f))) / (float)n;
+}
+
+// ===================================================== generic: any window ==
+//
+// One warp per track with runtime win and P: the template region is staged,
+// the lerped (win+2)^2 grid C and the gradients are kept in shared memory,
+// then the search region is staged over the template area and the Newton
+// loop runs out of shared memory.  The level kernels take it for a window
+// other than (kWin, kP); K4 runs it for every call.
+
+// Floats of shared memory one warp needs.
+__host__ __device__ inline int warp_floats(int win, int P) {
+  const int RJ = win + 3, W2 = win + 2;
+  const int stage = RJ * RJ > P * P ? RJ * RJ : P * P;
+  return stage + W2 * W2 + 2 * win * win;
 }
 
 // Bilinear sample of window element (i, c) at anchor `a`: rows first, then
@@ -173,12 +254,8 @@ __device__ void track_warp(
   g00 = warp_sum(g00);
   g01 = warp_sum(g01);
   g11 = warp_sum(g11);
-  float det = g00 * g11 - g01 * g01;
-  det = fabsf(det) > 1e-20f ? det : 1e-20f;
-  const float tr = 0.5f * (g00 + g11);
-  const float dg = g00 - g11;
-  const float min_eig =
-      (tr - sqrtf(fmaxf(0.25f * dg * dg + g01 * g01, 0.0f))) / (float)n_win;
+  float det, min_eig;
+  structure(g00, g01, g11, n_win, det, min_eig);
   __syncwarp();   // everyone is done reading the template staging area
 
   // ---- search region -> shared (over the template staging area) ----
@@ -206,13 +283,7 @@ __device__ void track_warp(
     }
     b0 = warp_sum(b0);
     b1 = warp_sum(b1);
-    const float sx = (g11 * b0 - g01 * b1) / det;
-    const float sy = (g00 * b1 - g01 * b0) / det;
-    // clip as the reference's jnp.clip does: NaN stays NaN
-    const float ax2 = ax + sx, ay2 = ay + sy;
-    ax = ax2 != ax2 ? ax2 : fminf(fmaxf(ax2, 0.0f), hiX);
-    ay = ay2 != ay2 ? ay2 : fminf(fmaxf(ay2, 0.0f), hiX);
-    if (sx * sx + sy * sy < eps2) break;
+    if (newton_update(b0, b1, g00, g01, g11, det, hiX, eps2, ay, ax)) break;
   }
 
   float err = 0.0f;
@@ -259,6 +330,377 @@ __device__ void track_level(
              aJ[2 * t + 1], I, rows, cols, cI[2 * t], cI[2 * t + 1],
              a0[2 * t], a0[2 * t + 1], a_out + 2 * t, eig_out + t,
              err_out + t, stage, win, P, iters, eps, hiX, want_err);
+}
+
+// ========================================= compile-time window, LANES a track
+
+// The smallest row pitch >= P that is congruent to WIN mod 32: any 32
+// consecutive elements of a WIN-wide window then fall on 32 distinct banks.
+__host__ __device__ constexpr int search_pitch(int win, int P) {
+  return P + (((win - P) % 32) + 32) % 32;
+}
+
+template <int WIN, int P, int LANES>
+struct Shape {
+  static_assert(LANES == 32 || LANES == 128, "32 or 128 threads a track");
+  static constexpr int RJ = WIN + 3;                  // template region side
+  static constexpr int SP = search_pitch(WIN, P);     // search row pitch
+  static constexpr int NWIN = WIN * WIN;
+  static constexpr int NE = (NWIN + LANES - 1) / LANES;  // elements a thread
+  static constexpr int WARPS = LANES / 32;
+  static constexpr int RED = WARPS > 1 ? 2 * WARPS * 4 : 0;  // partials
+  static constexpr int FLOATS = RJ * RJ + P * SP + RED;     // a group's smem
+  static constexpr int GROUPS = kBlockThreads / LANES;      // a block's
+};
+
+// Blocks a SM the specialised kernels are compiled for (`__launch_bounds__`).
+// 32 lanes: 4, so a thread may use 128 registers: its 14 window elements
+// (J, dx, dy, offset: 56 registers through the Newton loop) and the loop's
+// loads in flight fit with no spill, for 16 resident warps a SM.  (At 5
+// blocks, 96 registers, ptxas spilled and the kernel ran 13 % slower on the
+// fleet's level calls than at 4.)  128 lanes: 8, so 64 registers, 4 elements
+// a thread, 32 resident warps a SM.
+constexpr int min_blocks(int lanes) { return lanes == 32 ? 4 : 8; }
+
+template <int LANES>
+__device__ __forceinline__ void group_sync(int bar_id) {
+  if constexpr (LANES == 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(bar_id), "r"(LANES) : "memory");
+  }
+}
+
+// v[n] summed over the group; every thread gets the same sums (warp trees,
+// then the warps' partials added in one fixed order).  `red` holds two
+// buffers of partials, used in turn: a buffer is written again only after
+// the next barrier, which every thread passes after reading it.
+template <int LANES, int N>
+__device__ __forceinline__ void group_sum(float (&v)[N], float* red,
+                                          int& parity, int tid, int bar_id) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) v[n] = warp_sum(v[n]);
+  if constexpr (LANES > 32) {
+    constexpr int W = LANES / 32;
+    float* buf = red + parity * (W * 4);
+    if ((tid & 31) == 0) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) buf[(tid >> 5) * 4 + n] = v[n];
+    }
+    group_sync<LANES>(bar_id);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      float s = buf[n];
+#pragma unroll
+      for (int w = 1; w < W; ++w) s += buf[w * 4 + n];
+      v[n] = s;
+    }
+    parity ^= 1;
+  }
+}
+
+// One pixel into shared memory: an asynchronous 4-byte copy for float, a
+// load widened to float for bf16 (cp.async moves 4, 8 or 16 bytes).
+__device__ __forceinline__ void stage_px(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void stage_px(float* dst,
+                                         const __nv_bfloat16* src) {
+  *dst = __bfloat162float(*src);
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The SIDE x SIDE region at (row0, col0) of img (rows x cols), every read
+// clamped to the image, into dst with row pitch PITCH.  Row by row: a warp
+// copies one row a step, lane l its columns l and l + 32, so one copy
+// instruction covers one contiguous run of the row; the warps of a group
+// take rows in turn.  The column clamps are computed once.  Float rows are
+// all requested before any wait; bf16 rows go four at a time (each load lands
+// in a register before it is widened and stored, and a fully unrolled pass
+// would hold every pixel of both regions in registers at once).
+template <int SIDE, int PITCH, int LANES, typename T>
+__device__ __forceinline__ void stage_region(
+    float* dst, const T* __restrict__ img, int rows, int cols, int row0,
+    int col0, int tid) {
+  constexpr int W = LANES / 32, CH = (SIDE + 31) / 32;
+  constexpr int PER = (SIDE + W - 1) / W;
+  const int lane = tid & 31, w = tid >> 5;
+  int c[CH];
+#pragma unroll
+  for (int h = 0; h < CH; ++h)
+    c[h] = clampi(col0 + lane + 32 * h, 0, cols - 1);
+  auto row = [&](int j) {
+    const int k = w + j * W;
+    if (j + 1 < PER || k < SIDE) {
+      const T* src = img + (size_t)clampi(row0 + k, 0, rows - 1) * cols;
+#pragma unroll
+      for (int h = 0; h < CH; ++h) {
+        const int m = lane + 32 * h;
+        if (h + 1 < CH || m < SIDE) stage_px(dst + k * PITCH + m, src + c[h]);
+      }
+    }
+  };
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) row(j);
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < PER; ++j) row(j);
+  }
+}
+
+// The bilinear weights of an anchor's cell, negated: (0, 0), (0, 1), (1, 0),
+// (1, 1).
+__device__ __forceinline__ void neg_weights(const Anchor& a, float (&w)[4]) {
+  w[0] = -(1.0f - a.fy) * (1.0f - a.fx);
+  w[1] = -(1.0f - a.fy) * a.fx;
+  w[2] = -a.fy * (1.0f - a.fx);
+  w[3] = -a.fy * a.fx;
+}
+
+// j minus the bilinear sample at p (row pitch SP): the weights folded into
+// four FMAs.  (The reference lerps rows, then columns; the two differ in the
+// last bits.)
+template <int SP>
+__device__ __forceinline__ float tap_diff(const float* p, const float (&w)[4],
+                                          float j) {
+  float d = fmaf(w[0], p[0], j);
+  d = fmaf(w[1], p[1], d);
+  d = fmaf(w[2], p[SP], d);
+  return fmaf(w[3], p[SP + 1], d);
+}
+
+// One track by a group of LANES threads (thread `tid` of the group, named
+// barrier `bar_id`), with the contract of track_warp; `smem` is the group's
+// Shape<WIN, P, LANES>::FLOATS floats.
+template <int WIN, int P, int LANES, typename T>
+__device__ void track_fixed(
+    const T* __restrict__ J, int rowsJ, int colsJ, int cyJ, int cxJ,
+    float ayJ, float axJ,
+    const T* __restrict__ I, int rowsI, int colsI, int cyI, int cxI,
+    float ay, float ax,
+    float* __restrict__ a_out, float* __restrict__ eig_out,
+    float* __restrict__ err_out, float* smem, int tid, int bar_id,
+    int iters, float eps, float hiX, int want_err) {
+  using S = Shape<WIN, P, LANES>;
+  constexpr int RJ = S::RJ, SP = S::SP, NE = S::NE;
+  float* tmpl = smem;                     // [RJ][RJ]
+  float* srch = smem + RJ * RJ;           // [P][SP]
+  float* red = srch + P * SP;             // [2][WARPS][4] (LANES > 32)
+  int parity = 0;
+
+  // ---- both regions requested together, one wait ----
+  const int iyJ = floor_clamped(ayJ, 0, 1 << 20);
+  const int ixJ = floor_clamped(axJ, 0, 1 << 20);
+  const float fyJ = ayJ - (float)iyJ;
+  const float fxJ = axJ - (float)ixJ;
+  // corners are clamped before they meet the anchor or a row stride
+  stage_region<RJ, RJ, LANES>(tmpl, J, rowsJ, colsJ,
+                              clampi(cyJ, 0, rowsJ - 1) + iyJ - 1,
+                              clampi(cxJ, 0, colsJ - 1) + ixJ - 1, tid);
+  stage_region<P, SP, LANES>(srch, I, rowsI, colsI, clampi(cyI, 0, rowsI - 1),
+                             clampi(cxI, 0, colsI - 1), tid);
+  stage_wait();
+  group_sync<LANES>(bar_id);
+
+  // ---- this thread's window elements: J, dx, dy, tap offset ----
+  // C[k][m] is the template lerped at (k, m) of the region, rows first, then
+  // columns, as the reference does; element (i, c) is C[i+1][c+1], dx and dy
+  // its central differences.  An element past the window (the last k of
+  // some threads) holds zeros and is left out of every sum.
+  float Jv[NE], dx[NE], dy[NE];
+  int off[NE];
+  const bool last_in = tid + (NE - 1) * LANES < S::NWIN;
+  float g[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < NE; ++k) {
+    const bool in = k + 1 < NE || last_in;
+    const int e = in ? tid + k * LANES : 0;
+    const int i = e / WIN, c = e - i * WIN;
+    off[k] = i * SP + c;
+    const float* q = tmpl + i * RJ + c;
+    auto row = [&](const float* p) {
+      return (1.0f - fyJ) * p[0] + fyJ * p[RJ];
+    };
+    auto col = [&](float s0, float s1) {
+      return (1.0f - fxJ) * s0 + fxJ * s1;
+    };
+    const float s10 = row(q + RJ), s11 = row(q + RJ + 1),
+                s12 = row(q + RJ + 2), s13 = row(q + RJ + 3);
+    const float s01 = row(q + 1), s02 = row(q + 2);
+    const float s21 = row(q + 2 * RJ + 1), s22 = row(q + 2 * RJ + 2);
+    const float gx = 0.5f * (col(s12, s13) - col(s10, s11));
+    const float gy = 0.5f * (col(s21, s22) - col(s01, s02));
+    Jv[k] = in ? col(s11, s12) : 0.0f;
+    dx[k] = in ? gx : 0.0f;
+    dy[k] = in ? gy : 0.0f;
+    if (in) {
+      g[0] += dx[k] * dx[k];
+      g[1] += dx[k] * dy[k];
+      g[2] += dy[k] * dy[k];
+    }
+  }
+  group_sum<LANES>(g, red, parity, tid, bar_id);
+  float det, min_eig;
+  structure(g[0], g[1], g[2], S::NWIN, det, min_eig);
+
+  // ---- Newton loop (every thread holds identical ay, ax) ----
+  const int hi_i = (int)hiX;
+  const float eps2 = eps * eps;
+  for (int it = 0; it < iters; ++it) {
+    const Anchor a = split_anchor(ay, ax, hi_i);
+    const float* base = srch + a.iy * SP + a.ix;
+    float w[4];
+    neg_weights(a, w);
+    float b[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < NE; ++k) {
+      if (k + 1 < NE || last_in) {
+        const float d = tap_diff<SP>(base + off[k], w, Jv[k]);
+        b[0] = fmaf(d, dx[k], b[0]);
+        b[1] = fmaf(d, dy[k], b[1]);
+      }
+    }
+    group_sum<LANES>(b, red, parity, tid, bar_id);
+    if (newton_update(b[0], b[1], g[0], g[1], g[2], det, hiX, eps2, ay, ax))
+      break;
+  }
+
+  float err = 0.0f;
+  if (want_err) {
+    const Anchor a = split_anchor(ay, ax, hi_i);
+    const float* base = srch + a.iy * SP + a.ix;
+    float w[4];
+    neg_weights(a, w);
+    float s[1] = {0.0f};
+#pragma unroll
+    for (int k = 0; k < NE; ++k) {
+      if (k + 1 < NE || last_in)
+        s[0] += fabsf(tap_diff<SP>(base + off[k], w, Jv[k]));
+    }
+    group_sum<LANES>(s, red, parity, tid, bar_id);
+    err = s[0] / (float)S::NWIN;
+  }
+  if (tid == 0) {
+    a_out[0] = ay;
+    a_out[1] = ax;
+    *eig_out = min_eig;
+    *err_out = err;
+  }
+}
+
+// track_level's contract for the compile-time window.
+template <int WIN, int P, int LANES, typename T>
+__device__ __forceinline__ void track_level_fixed(
+    const T* __restrict__ J, const T* __restrict__ I, int rows, int cols,
+    int t, const int* __restrict__ cJ, const int* __restrict__ cI,
+    const float* __restrict__ aJ, const float* __restrict__ a0,
+    const unsigned char* __restrict__ valid,
+    float* __restrict__ a_out, float* __restrict__ eig_out,
+    float* __restrict__ err_out, float* smem, int tid, int bar_id,
+    int iters, float eps, float hiX, int want_err) {
+  if (valid[t] == 0) {
+    if (tid == 0) {
+      a_out[2 * t] = a0[2 * t];
+      a_out[2 * t + 1] = a0[2 * t + 1];
+      eig_out[t] = 0.0f;
+      err_out[t] = 0.0f;
+    }
+    return;
+  }
+  track_fixed<WIN, P, LANES>(
+      J, rows, cols, cJ[2 * t], cJ[2 * t + 1], aJ[2 * t], aJ[2 * t + 1], I,
+      rows, cols, cI[2 * t], cI[2 * t + 1], a0[2 * t], a0[2 * t + 1],
+      a_out + 2 * t, eig_out + t, err_out + t, smem, tid, bar_id, iters, eps,
+      hiX, want_err);
+}
+
+// fn(t, tid, bar_id, smem) for every track t < T, each by one group of LANES
+// threads of a persistent grid.  A 32-lane group takes its next track from
+// the counter `next` (zeroed before the launch) when it is done with one; a
+// 128-lane group (one a block) strides by the grid.  The group syncs before
+// its shared memory is staged again.
+template <int WIN, int P, int LANES, typename F>
+__device__ __forceinline__ void for_each_track(int T, int* next, float* smem,
+                                               F&& fn) {
+  using S = Shape<WIN, P, LANES>;
+  const int g = threadIdx.x / LANES, tid = threadIdx.x % LANES;
+  // barrier 0 is __syncthreads'; one group a block names barrier 1 as a
+  // constant, so ptxas reserves no other (a runtime id reserves all 16 and
+  // halves the resident blocks)
+  const int bar_id = S::GROUPS == 1 ? 1 : 1 + g;
+  float* mine = smem + g * S::FLOATS;
+  const int n_groups = gridDim.x * S::GROUPS;
+  int t = blockIdx.x * S::GROUPS + g;
+  while (t < T) {
+    fn(t, tid, bar_id, mine);
+    if constexpr (LANES == 32) {
+      int n = 0;
+      if (tid == 0) n = atomicAdd(next, 1) + n_groups;
+      t = __shfl_sync(kFull, n, 0);
+    } else {
+      t += n_groups;
+    }
+    group_sync<LANES>(bar_id);
+  }
+}
+
+// ------------------------------------------------------------ host side --
+
+// What a kernel holds resident on the device last launched on: blocks a SM
+// (occupancy API) times SMs.  One per kernel instantiation, so the
+// occupancy query runs once, not at every launch.
+struct Resident {
+  int dev = -1, blocks = 0;
+};
+
+// Blocks of a persistent launch of `kernel` (kBlockThreads threads, `smem`
+// bytes): what the card holds resident, no more than T tracks in groups of
+// `groups` a block need.  0 blocks is an error: the kernel cannot run.
+template <typename K>
+inline cudaError_t persistent_blocks(K kernel, size_t smem, int T, int groups,
+                                     Resident& cache, int* blocks) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev != cache.dev) {
+    int n_sm = 0, per_sm = 0;
+    rc = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         kBlockThreads, smem);
+    if (rc != cudaSuccess) return rc;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache.dev = dev;
+    cache.blocks = per_sm * n_sm;
+  }
+  const int need = (T + groups - 1) / groups;
+  *blocks = need < cache.blocks ? need : cache.blocks;
+  return cudaSuccess;
+}
+
+// {registers a thread, shared bytes a track, resident warps a SM} of a level
+// kernel launched with kBlockThreads threads and `smem` bytes, `groups`
+// tracks a block.
+template <typename K>
+inline cudaError_t kernel_info(K kernel, size_t smem, int groups, int* out) {
+  cudaFuncAttributes attr;
+  int per_sm = 0;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       kBlockThreads, smem);
+  if (rc != cudaSuccess) return rc;
+  out[0] = attr.numRegs;
+  out[1] = (int)(smem / groups);
+  out[2] = per_sm * (kBlockThreads / 32);
+  return cudaSuccess;
 }
 
 }  // namespace lk

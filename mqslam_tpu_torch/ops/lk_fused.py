@@ -35,7 +35,9 @@ base, no padding of T to groups of 8.
 
 On a CUDA tensor ``lk_level`` launches the kernel (``csrc/lk_strip.cu``) or
 raises; the plain version serves CPU tensors, and the comparison on the
-card.  ``launches`` counts kernel launches and nothing else.
+card.  ``launches`` counts kernel launches and nothing else.  The launch
+shape (compiled-in or generic window, threads a track) follows
+``ops/lk_tile``'s rule: ``instantiation``, ``lanes_per_track``.
 """
 
 import ctypes
@@ -44,7 +46,7 @@ import torch
 
 from mqslam_tpu_torch.ops import lk_tile
 
-__all__ = ["lk_level", "lk_level_plain", "launches"]
+__all__ = ["lk_level", "lk_level_plain", "launches", "kernel_info"]
 
 launches = 0
 
@@ -78,18 +80,35 @@ def _library():
         lib = csrc.load("lk_strip")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lk_strip_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, f, f, i, i, p]
+                                        i, i, i, i, i, i, f, f, i, i, i, p, p]
         lib.lk_strip_launch.restype = ctypes.c_int
+        lib.lk_strip_info.argtypes = [i, i, i, i, p]
+        lib.lk_strip_info.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def kernel_info(win: int = 21, P: int = 36, lanes: int = 32,
+                dtype=torch.float32) -> dict:
+    """Registers a thread, shared bytes a track and resident warps a SM
+    (CUDA occupancy API) of the kernel a launch with this window, lane shape
+    and image type runs, on the current CUDA device."""
+    lk_tile.check_lanes(lanes, win, P)
+    out = (ctypes.c_int * 4)()
+    rc = _library().lk_strip_info(win, P, lanes,
+                                  int(dtype == torch.bfloat16),
+                                  ctypes.addressof(out))
+    return lk_tile.info_dict(rc, out, win, P, lanes, "lk_strip_info")
+
+
 def lk_level(imgJ, imgI, cJ, cI, aJ, a0, valid, win: int, iters: int,
-             eps: float, hiX: float, want_err: bool = True):
+             eps: float, hiX: float, want_err: bool = True, _lanes=None):
     """The level for tensors on one device: the CUDA kernel for CUDA tensors
     (launched on the current stream, no sync; raises if it cannot build or
-    launch), the plain version for CPU tensors."""
+    launch), the plain version for CPU tensors.  ``_lanes``: as for
+    ``lk_tile.lk_level`` (forces the threads a track; no caller's option)."""
     global launches
+    lk_tile.check_lanes(_lanes, win, lk_tile.search_side(win, hiX))
     if imgJ.device.type == "cpu":
         return lk_level_plain(imgJ, imgI, cJ, cI, aJ, a0, valid, win, iters,
                               eps, hiX, want_err)
@@ -102,14 +121,18 @@ def lk_level(imgJ, imgI, cJ, cI, aJ, a0, valid, win: int, iters: int,
                                                     a0, valid)
     T = cJ.shape[0]
     R, Wp = imgJ.shape
+    P = lk_tile.search_side(win, hiX)
+    lanes = lk_tile.launch_lanes(T, lk_tile.sm_count(imgJ.device), win, P,
+                                 _lanes)
+    nxt = torch.empty(1, dtype=torch.int32, device=imgJ.device)
     lib = _library()
     with torch.cuda.device(imgJ.device):
         rc = lib.lk_strip_launch(
             imgJ.data_ptr(), imgI.data_ptr(), cJ.data_ptr(), cI.data_ptr(),
             aJ.data_ptr(), a0.data_ptr(), valid.data_ptr(),
             a_out.data_ptr(), eig.data_ptr(), err.data_ptr(),
-            T, R, Wp, win, lk_tile.search_side(win, hiX), iters, eps, hiX,
-            int(bool(want_err)), int(imgJ.dtype == torch.bfloat16),
+            T, R, Wp, win, P, iters, eps, hiX, int(bool(want_err)),
+            int(imgJ.dtype == torch.bfloat16), lanes, nxt.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lk_strip kernel launch failed: CUDA error {rc}")

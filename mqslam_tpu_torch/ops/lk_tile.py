@@ -28,6 +28,13 @@ never used to form an address, so they may hold NaN.
 On a CUDA tensor ``lk_level`` launches the kernel (``csrc/lk_level.cu``) or
 raises; the plain version serves CPU tensors, and the comparison on the
 card.  ``launches`` counts kernel launches and nothing else.
+
+The launch shape is chosen here, in plain Python the CPU tests reach, and
+the kernel takes what it is given: ``instantiation`` says whether ``(win,
+P)`` is the window compiled into the kernel (``SPECIALISED``) or runs the
+generic one-warp-a-track code, and ``lanes_per_track`` gives the threads a
+track (one of ``LANE_SHAPES``) from the track count and the card's SM count.
+Both level kernels (this one and ``lk_fused``'s) follow the same rule.
 """
 
 import ctypes
@@ -35,16 +42,77 @@ import ctypes
 import torch
 
 __all__ = ["lk_level", "lk_level_plain", "launches", "search_side",
-           "check_level_args", "launch_buffers"]
+           "check_level_args", "launch_buffers", "SPECIALISED",
+           "LANE_SHAPES", "instantiation", "lanes_per_track",
+           "launch_lanes", "check_lanes", "sm_count", "kernel_info"]
 
 launches = 0
 
 _lib = None
 
+SPECIALISED = (21, 36)     # (win, P) compiled into the level kernels
+LANE_SHAPES = (32, 128)    # threads a track: one warp, or four
+_TRACKS_PER_SM_FOR_128 = 4
+_n_sm = {}
+
 
 def search_side(win: int, hiX: float) -> int:
     """Side P of the square search region: hiX = P - 2 - win."""
     return int(round(hiX)) + 2 + win
+
+
+def instantiation(win: int, P: int) -> str:
+    """Which code a level launch runs for this window: ``"specialised"`` for
+    ``SPECIALISED`` (compile-time window, 32 or 128 threads a track,
+    persistent grid), ``"generic"`` for any other (one warp a track, runtime
+    window).  The kernel makes the same choice at launch."""
+    return "specialised" if (win, P) == SPECIALISED else "generic"
+
+
+def lanes_per_track(T: int, n_sm: int) -> int:
+    """Threads a track for the specialised window: 128 while the tracks
+    would leave most of the card empty as one warp each (at most
+    ``_TRACKS_PER_SM_FOR_128`` a SM: the four-warp groups then still fit in
+    one wave and a track's chain is about a quarter as long), else 32 (one
+    warp a track, a persistent grid that fills every SM).  Monotone: once 32,
+    32 for every larger T."""
+    if n_sm < 1:
+        raise ValueError(f"n_sm must be >= 1, got {n_sm}")
+    return 128 if T <= _TRACKS_PER_SM_FOR_128 * n_sm else 32
+
+
+def launch_lanes(T: int, n_sm: int, win: int, P: int, force=None) -> int:
+    """The threads a track a launch uses: ``force`` if given (checked),
+    else ``lanes_per_track`` for the specialised window and 32 for the
+    generic one."""
+    check_lanes(force, win, P)
+    if force is not None:
+        return int(force)
+    return lanes_per_track(T, n_sm) if instantiation(win, P) == \
+        "specialised" else 32
+
+
+def check_lanes(force, win: int, P: int):
+    """Raise on a forced lane shape no launch takes: not one of
+    ``LANE_SHAPES``, or more than one warp for the generic window."""
+    if force is None:
+        return
+    if isinstance(force, bool) or force not in LANE_SHAPES:
+        raise ValueError(f"_lanes must be one of {LANE_SHAPES}, got "
+                         f"{force!r}")
+    if force != 32 and instantiation(win, P) == "generic":
+        raise ValueError(f"_lanes={force}: the generic window (win={win}, "
+                         f"P={P}) runs one warp a track")
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _n_sm:
+        _n_sm[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _n_sm[idx]
 
 
 def check_level_args(imgJ, imgI, cJ, cI, aJ, a0, valid, A,
@@ -186,18 +254,47 @@ def _library():
         lib = csrc.load("lk_level")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lk_level_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, i, f, f, i, p]
+                                        i, i, i, i, i, i, i, f, f, i, i, p, p]
         lib.lk_level_launch.restype = ctypes.c_int
+        lib.lk_level_info.argtypes = [i, i, i, p]
+        lib.lk_level_info.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def info_dict(rc, out, win, P, lanes, what):
+    """The record of an ``lk_*_info`` call (raises on a CUDA error)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+    return dict(win=win, P=P, lanes=lanes,
+                instantiation="specialised" if out[3] else "generic",
+                registers=out[0], shared_bytes_per_track=out[1],
+                resident_warps_per_sm=out[2])
+
+
+def kernel_info(win: int = 21, P: int = 36, lanes: int = 32) -> dict:
+    """Registers a thread, shared bytes a track and resident warps a SM
+    (CUDA occupancy API) of the kernel a launch with this window and lane
+    shape runs, on the current CUDA device."""
+    check_lanes(lanes, win, P)
+    out = (ctypes.c_int * 4)()
+    rc = _library().lk_level_info(win, P, lanes, ctypes.addressof(out))
+    return info_dict(rc, out, win, P, lanes, "lk_level_info")
+
+
 def lk_level(imgJ, imgI, cJ, cI, aJ, a0, valid, A: int, win: int,
-             iters: int, eps: float, hiX: float, want_err: bool = True):
+             iters: int, eps: float, hiX: float, want_err: bool = True,
+             _lanes=None):
     """The level for tensors on one device: the CUDA kernel for CUDA tensors
     (launched on the current stream, no sync; raises if it cannot build or
-    launch), the plain version for CPU tensors."""
+    launch), the plain version for CPU tensors.
+
+    ``_lanes`` forces the threads a track (one of ``LANE_SHAPES``; 32 only
+    for the generic window) instead of ``lanes_per_track``'s choice, so that
+    every instantiation can be held against the plain version on the card;
+    it changes no result and is not an option of any caller."""
     global launches
+    check_lanes(_lanes, win, search_side(win, hiX))
     if imgJ.device.type == "cpu":
         return lk_level_plain(imgJ, imgI, cJ, cI, aJ, a0, valid, A, win,
                               iters, eps, hiX, want_err)
@@ -208,14 +305,17 @@ def lk_level(imgJ, imgI, cJ, cI, aJ, a0, valid, A: int, win: int,
                                             valid)
     T = cJ.shape[0]
     Hp, Wp = imgJ.shape[0] // A, imgJ.shape[1]
+    P = search_side(win, hiX)
+    lanes = launch_lanes(T, sm_count(imgJ.device), win, P, _lanes)
+    nxt = torch.empty(1, dtype=torch.int32, device=imgJ.device)
     lib = _library()
     with torch.cuda.device(imgJ.device):
         rc = lib.lk_level_launch(
             imgJ.data_ptr(), imgI.data_ptr(), cJ.data_ptr(), cI.data_ptr(),
             aJ.data_ptr(), a0.data_ptr(), valid.data_ptr(),
             a_out.data_ptr(), eig.data_ptr(), err.data_ptr(),
-            T, A, Hp, Wp, win, search_side(win, hiX), iters, eps, hiX,
-            int(bool(want_err)), torch.cuda.current_stream().cuda_stream)
+            T, A, Hp, Wp, win, P, iters, eps, hiX, int(bool(want_err)),
+            lanes, nxt.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lk_level kernel launch failed: CUDA error {rc}")
     launches += 1

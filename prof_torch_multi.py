@@ -27,6 +27,30 @@ import torch
 import chip_smoke
 
 
+def lk_on_path_inputs(run, states, imgs, device):
+    """The tile kernel's level calls of one frame-group of the window,
+    recorded, then timed alone per launch from a CUDA graph (caches warm)
+    and with the L2 cache flushed before each launch, beside the valid
+    tracks and the Newton steps those inputs take (plain version): what the
+    profiled time per launch on the path is made of."""
+    from mqslam_tpu_torch.ops import lk_tile
+    calls = chip_smoke.record_level_calls(lk_tile, lambda: run(
+        states, imgs, generator=torch.Generator(device=device).manual_seed(1)))
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=device)
+    out = []
+    for a, we in calls:
+        call = lambda: lk_tile.lk_level(*a, want_err=we)
+        n_it = lk_tile.lk_level_plain(*a, want_err=we, return_iters=True)[3]
+        out.append(dict(
+            shape=list(a[0].shape), valid=int((a[6] != 0).sum()),
+            newton_steps=int(n_it.sum()),
+            graph_ms=chip_smoke.time_graph_ms(call),
+            l2_flushed_ms=chip_smoke.time_each_ms(call, flush=flush)))
+    return dict(levels=out, graph_ms_per_launch=sum(
+        x["graph_ms"] for x in out) / len(out), l2_flushed_ms_per_launch=sum(
+        x["l2_flushed_ms"] for x in out) / len(out))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--groups", type=int, default=None,
@@ -106,6 +130,8 @@ def main():
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     n_kernels = sum(r[2] for r in rows)
+    path_inputs = None if args.single else lk_on_path_inputs(
+        run, states, imgs[:, n_warm:n_warm + 2], device)
     smi = chip_smoke.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
@@ -124,8 +150,15 @@ def main():
         "lk_kernel_device_ms_per_frame_group": sum(
             us for k, us, _ in rows
             if "lk_level" in k or "lk_strip" in k) / 1e3 / args.groups,
+        # each level kernel's own time per launch on the path (profiled)
+        "lk_kernel_ms_per_launch": {
+            k[:80]: us / 1e3 / c for k, us, c in rows
+            if "lk_level" in k or "lk_strip" in k},
+        "lk_path_inputs": path_inputs,
         "note": "wall_ms and device_idle_share: the window without the "
-                "profiler (best of 2); busy time: the profiled window",
+                "profiler (best of 2); busy time: the profiled window; "
+                "lk_path_inputs: the tile kernel on the window's first "
+                "frame-group's own level calls, alone",
         "top": [{"name": k[:80], "device_ms_per_frame_group":
                  us / 1e3 / args.groups, "calls_per_frame_group":
                  c / args.groups} for k, us, c in rows[:args.top]],
