@@ -17,14 +17,17 @@ Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
      tracks shuffled and the corners made absolute (c), where it must also
      agree with the tile kernel's own output — both level kernels at each
      lane shape (32 and 128 threads a track), with their registers and
-     resident warps from the occupancy API, and at a window other than the
-     compiled-in one (``lk_track_pyr(win=15)``); the extraction kernel
+     resident warps from the occupancy API; the extraction kernel
      (``extract``) on the calls ``lk_track_pyr(impl="xla")`` makes on the
      bench's 640x480 pair at T = 384 (a) and on the fleet's 16-tile atlas at
      T = 6144 (b), and on corners out of bounds on every side (c), bit-equal
-     to its plain version, beside the one advanced-indexing call that
-     computes the same gather; the Newton-loop kernel (``lk_iterate``) on the
-     calls ``impl="pallas"`` makes at T = 384 (a) and T = 6144 (b),
+     to its plain version on each of its paths (vec4, element), beside
+     the one advanced-indexing call that computes the same gather; the
+     Newton-loop kernel (``lk_iterate``) on the calls ``impl="pallas"``
+     makes at T = 384 (a) and T = 6144 (b), at each lane shape, with its
+     registers and resident warps; all four at a window other than the
+     compiled-in one (``lk_track_pyr(win=15)``: the generic level and
+     Newton-loop code, patches of 18 and 30 columns on the element path),
   3. drives the multi-agent path — ``make_multi_agent_runner`` at full
      width: 16 divergent agents, 640x480, 33 frames, ``TrackerConfig()``
      defaults — with the launch counts set to 0 just before and read just
@@ -37,7 +40,8 @@ Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
      the extraction kernel) and ``(impl="pallas")`` (through the Newton-loop
      kernel) at T = 384 and T = 6144 — with the launch counts set to 0 just
      before each call and read just after, held against ``impl="fused"`` and
-     against each other,
+     against each other, and times ``impl="xla"`` with and without the
+     extraction kernel in alternating rounds (``dma_extract``'s default),
   6. runs the port bench's LK and triangulation sections once at their full
      sizes (``python -m mqslam_tpu_torch.bench`` runs the whole bench),
   7. runs both paths and both LK modes on the card against themselves on the
@@ -583,11 +587,12 @@ def phase_kernel_strip(single, config, tile_calls, tile_outs, flush, device):
 
 
 def phase_kernel_generic(pair, pair_in, flush, device):
-    """Both level kernels at a window other than the compiled-in one:
+    """The kernels at a window other than the compiled-in one:
     ``lk_track_pyr(win=15)`` on the bench's pair (unpadded pyramids,
-    ``lk_track_pyr`` pads them) through K1 (``impl="tiled"``) and K2
-    (``impl="fused"``), every level call held against its plain version.
-    Returns {impl: record}."""
+    ``lk_track_pyr`` pads them) through K1 (``impl="tiled"``), K2
+    (``impl="fused"``), K3 (``impl="xla"``: patches of P = 18 and 30, the
+    element path) and K4 (``impl="pallas"``), every kernel call held against
+    its plain version.  Returns {impl: record}."""
     from mqslam_tpu_torch.ops import lk, lk_fused, lk_tile
     pts = pair_in[0][2]
     pyr = lambda im: lk.build_pyramid(torch.as_tensor(im).to(device), 3)
@@ -601,6 +606,16 @@ def phase_kernel_generic(pair, pair_in, flush, device):
         require(all(h[0]["instantiation"] == "generic" for h in held),
                 "win=15 did not run the generic instantiation")
         out[impl] = sum_levels([h[0] for h in held])
+    inp = ((pyr_a, pyr_b, pts), dict(win=15))
+    ext = [hold_extract(a, flush) for a in extract_calls(inp)]
+    require(sorted({e["P"] for e in ext}) == [18, 30]
+            and all(e["path"] == "element" for e in ext),
+            "win=15 xla: expected P = 18 and 30 on the element path")
+    out["xla"] = sum_extract(ext)
+    held = [hold_iterate(a, flush, 1e-4)[32] for a in iterate_calls(inp)]
+    require(all(h["instantiation"] == "generic" for h in held),
+            "win=15 pallas did not run the generic instantiation")
+    out["pallas"] = sum_levels(held)
     return out
 
 
@@ -631,20 +646,33 @@ def pair_lk_inputs(pair, device):
 
 
 def hold_extract(args, flush):
-    """One extraction call: the kernel against its plain version (bit-equal
-    in patches, rows and columns) and against the advanced-indexing call that
-    gathers the same block, all timed, beside the bound: the block read
-    once, but no more than the image whole (the patches of neighbouring
-    tracks overlap, as ``lk_level_bound`` counts them), the block written
-    once, and 8 bytes of corner in and 8 of (y0, cx) out per track."""
+    """One extraction call on every path of the kernel that takes its P
+    (``extract.PATHS``; the four-float path needs P % 4 == 0): each path
+    against the plain version (bit-equal in patches, rows and columns) and
+    timed, beside the advanced-indexing call that gathers the same block and
+    the bound: the block read once, but no more than the image whole (the
+    patches of neighbouring tracks overlap, as ``lk_level_bound`` counts
+    them), the block written once, and 8 bytes of corner in and 8 of (y0, cx)
+    out per track.  The top-level times are those of ``kernel_path(P)``,
+    the path a caller gets; ``paths`` has every path's."""
     from mqslam_tpu_torch.ops import extract
     img, corners, P = args
-    out_k = extract.extract_patches_dma(img, corners, P)
-    torch.cuda.synchronize()
     out_p = extract.extract_patches_plain(img, corners, P)
-    require(all(torch.equal(k, p) for k, p in zip(out_k, out_p)),
-            "extract: kernel and plain version differ")
-    d = float((out_k[0] - out_p[0]).abs().max())
+    paths = {}
+    for path in extract.PATHS:
+        if path == "vec4" and P % 4:
+            continue
+        call = lambda: extract.extract_patches_dma(img, corners, P,
+                                                   _path=path)
+        out_k = call()
+        torch.cuda.synchronize()
+        require(all(torch.equal(k, p) for k, p in zip(out_k, out_p)),
+                f"extract ({path} path, P = {P}): kernel and plain version "
+                "differ")
+        paths[path] = dict(
+            max_abs_err=float((out_k[0] - out_p[0]).abs().max()),
+            ms=time_ms(call), ms_graph=time_graph_ms(call),
+            ms_l2_flushed=time_each_ms(call, flush=flush))
     T = int(corners.shape[0])
     rows = (out_p[1][:, None] + torch.arange(
         extract.ROWS_CAP, device=img.device))[:, :, None]
@@ -654,41 +682,62 @@ def hold_extract(args, flush):
     block_b = T * extract.ROWS_CAP * P * 4
     read_b = min(block_b, img.numel() * img.element_size())
     nbytes = read_b + block_b + 16 * T
-    call = lambda: extract.extract_patches_dma(img, corners, P)
+    rule = extract.kernel_path(P)
     rec = dict(
-        shape=[int(x) for x in img.shape], T=T, P=P, max_abs_err=d,
-        ms=time_ms(call), ms_graph=time_graph_ms(call),
-        ms_l2_flushed=time_each_ms(call, flush=flush),
+        shape=[int(x) for x in img.shape], T=T, P=P, path=rule,
+        **paths[rule],
         plain_ms=time_each_ms(
             lambda: extract.extract_patches_plain(img, corners, P), reps=10),
         library_ms=time_ms(library), library_ms_graph=time_graph_ms(library),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         bound_working=dict(read_bytes=read_b, write_bytes=block_b,
-                           io_bytes=16 * T, bytes=nbytes))
-    log(f"extract {rec['shape']} T={T} P={P}: kernel {rec['ms']:.4f} ms "
-        f"({rec['ms_graph']:.4f} in a graph, {rec['ms_l2_flushed']:.4f} "
-        f"L2-flushed), indexing {rec['library_ms']:.4f} "
-        f"({rec['library_ms_graph']:.4f}), bound {rec['bound_ms']:.5f} ms")
+                           io_bytes=16 * T, bytes=nbytes), paths=paths)
+    rec["max_abs_err"] = max(v["max_abs_err"] for v in paths.values())
+    log(f"extract {rec['shape']} T={T} P={P}, in a graph: " + ", ".join(
+        f"{k} {v['ms_graph']:.4f}" for k, v in paths.items())
+        + f" ms; indexing {rec['library_ms_graph']:.4f}, bound "
+        f"{rec['bound_ms']:.5f} ms")
     return rec
 
 
-def phase_kernel_extract(pair_in, fleet_in, flush):
-    """K3 (extract.extract_patches_dma) against its plain version: (a) the
-    six calls ``lk_track_pyr(impl="xla")`` makes on the bench's pair at
-    T = 384 (template P = 24 and search P = 36 on each of the three padded
-    levels), (b) the same on the fleet's 16-tile atlas at T = 6144, (c)
-    corners out of bounds on every side of (a)'s level 0."""
+def sum_extract(levels):
+    """``sum_levels`` for extraction calls, with each path's times summed
+    over the calls that ran it."""
+    rec = sum_levels(levels)
+    paths = {}
+    for lvl in levels:
+        for path, v in lvl["paths"].items():
+            acc = paths.setdefault(path, dict(calls=0, ms=0.0, ms_graph=0.0,
+                                              ms_l2_flushed=0.0))
+            acc["calls"] += 1
+            for k in ("ms", "ms_graph", "ms_l2_flushed"):
+                acc[k] += v[k]
+    rec["paths"] = paths
+    return rec
+
+
+def extract_calls(inputs, **kw):
+    """The argument lists ``lk_track_pyr(impl="xla")`` hands the extraction
+    kernel (``dma_extract``'s default on the card) on ``inputs`` (its (args,
+    kwargs)): six, a template and a search patch on each of three levels."""
     from mqslam_tpu_torch.ops import extract, lk
+    args, kw0 = inputs
+    rec = record_calls(extract, "extract_patches_dma", lambda: lk.lk_track_pyr(
+        *args, impl="xla", **kw0, **kw))
+    require(len(rec) == 6, f"impl='xla' made {len(rec)} extractions, "
+                           "expected 6")
+    return [a for a, _ in rec]
 
-    def calls(inputs):
-        args, kw = inputs
-        rec = record_calls(extract, "extract_patches_dma",
-                           lambda: lk.lk_track_pyr(*args, impl="xla", **kw))
-        require(len(rec) == 6, f"impl='xla' made {len(rec)} extractions, "
-                               "expected 6")
-        return [a for a, _ in rec]
 
-    calls_a, calls_b = calls(pair_in), calls(fleet_in)
+def phase_kernel_extract(pair_in, fleet_in, flush):
+    """K3 (extract.extract_patches_dma) against its plain version on each
+    path: (a) the six calls ``lk_track_pyr(impl="xla")`` makes on the
+    bench's pair at T = 384 (template P = 24 and search P = 36 on each of the
+    three padded levels), (b) the same on the fleet's 16-tile atlas at
+    T = 6144, (c) corners out of bounds on every side of (a)'s level 0."""
+    from mqslam_tpu_torch.ops import extract
+
+    calls_a, calls_b = extract_calls(pair_in), extract_calls(fleet_in)
     img = max((a[0] for a in calls_a), key=lambda x: x.numel())
     H, W = img.shape
     i32 = torch.iinfo(torch.int32)
@@ -701,7 +750,7 @@ def phase_kernel_extract(pair_in, fleet_in, flush):
     calls_c = [(img, far, 24), (img, far, 36)]
     inputs = {}
     for key, cl in (("a", calls_a), ("b", calls_b), ("c", calls_c)):
-        inputs[key] = sum_levels([hold_extract(a, flush) for a in cl])
+        inputs[key] = sum_extract([hold_extract(a, flush) for a in cl])
     a = inputs["a"]
     return dict(
         name="extract", route="cuda", source="mqslam_tpu_torch/csrc/extract.cu",
@@ -711,88 +760,124 @@ def phase_kernel_extract(pair_in, fleet_in, flush):
         plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], library_ms=a["library_ms"],
         library_ms_graph=a["library_ms_graph"],
+        path={24: extract.kernel_path(24), 36: extract.kernel_path(36)},
         note="top-level numbers are input (a), summed over the six calls of "
              "one impl='xla' LK call at T = 384 on the bench's 640x480 "
-             "pair; inputs.b the fleet's T = 6144 atlas, inputs.c 144 "
+             "pair, on the path kernel_path(P) picks; paths: each path's "
+             "times; inputs.b the fleet's T = 6144 atlas, inputs.c 144 "
              "corners out of bounds, P = 24 and 36; library: img[rows, "
              "cols] with the index tensors made beforehand; bit-equal "
-             "required in patches, y0 and cx; " + TIMING_NOTE,
+             "required in patches, y0 and cx on every path; " + TIMING_NOTE,
         inputs=inputs)
 
 
-def hold_iterate(args, flush, min_eig_threshold):
-    """One Newton-loop call: the kernel against its plain version on the
-    tracks the driver keeps (``min_eig`` at or above the gate: a flat patch
-    has G = 0, its steps are roundoff amplified by 1/1e-20 and clipped, and
-    its status is false), both timed, beside the bound: both patches read
-    once, anchors in and outputs out (32 bytes per track) over the memory
-    rate, or the operations of the steps this input took."""
-    from mqslam_tpu_torch.ops import lk_iterate
+def hold_iterate(args, flush, min_eig_threshold, lanes_list=(None,)):
+    """One Newton-loop call at each lane shape of ``lanes_list`` (None: the
+    wrapper's rule): the kernel against its plain version on the tracks the
+    driver keeps (``min_eig`` at or above the gate: a flat patch has G = 0,
+    its steps are roundoff amplified by 1/1e-20 and clipped, and its status
+    is false), both timed, beside the bound: both patches read once, anchors
+    in and outputs out (32 bytes per track) over the memory rate, or the
+    operations of the steps this input took.  Returns {lanes used:
+    record}."""
+    from mqslam_tpu_torch.ops import lk_iterate, lk_tile
     pJ, pI = args[0], args[1]
     win = args[4]
-    a_k, eig_k, err_k = lk_iterate.lk_iterate(*args)
-    torch.cuda.synchronize()
+    T, P = int(pJ.shape[0]), int(pI.shape[1])
     a_p, eig_p, err_p, n_it = lk_iterate.lk_iterate_plain(
         *args, return_iters=True)
     ok = eig_p >= min_eig_threshold
-    require(bool(torch.equal(ok, eig_k >= min_eig_threshold)),
-            "lk_iterate: the min_eig gate differs")
-    require(bool(torch.isfinite(a_k[ok]).all()), "non-finite anchors")
-    d_a = float((a_k[ok] - a_p[ok]).abs().max())
-    d_eig = float(((eig_k[ok] - eig_p[ok]).abs()
-                   / eig_p[ok].abs().clamp(min=1e-6)).max())
-    d_err = float((err_k[ok] - err_p[ok]).abs().max())
-    require(d_a <= 2e-3, f"lk_iterate: a_final differs by {d_a} px")
-    require(d_eig <= 1e-4, f"lk_iterate: min_eig differs by {d_eig}")
-    require(d_err <= 1e-2, f"lk_iterate: err differs by {d_err}")
-    T = int(pJ.shape[0])
-    nbytes = T * (pJ.shape[1] ** 2 + pI.shape[1] ** 2) * 4 + 32 * T
+    nbytes = T * (pJ.shape[1] ** 2 + P ** 2) * 4 + 32 * T
     flops = lk_flops(T, win, True, n_it)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = flops / FP32_FLOP_PER_S * 1e3
-    call = lambda: lk_iterate.lk_iterate(*args)
-    rec = dict(
-        T=T, kept=int(ok.sum()), max_abs_err=d_a, min_eig_rel=d_eig,
-        err_abs=d_err, ms=time_ms(call), ms_graph=time_graph_ms(call),
-        ms_l2_flushed=time_each_ms(call, flush=flush),
-        plain_ms=time_each_ms(lambda: lk_iterate.lk_iterate_plain(*args),
-                              reps=10),
-        bound_ms=max(b_ms, o_ms),
-        bound_by="bytes" if b_ms >= o_ms else "operations",
-        bound_working=dict(bytes=nbytes, flops=flops,
-                           newton_steps=int(n_it.sum()), bytes_ms=b_ms,
-                           operations_ms=o_ms))
-    log(f"lk_iterate T={T}: kernel {rec['ms']:.4f} ms ({rec['ms_graph']:.4f}"
-        f" in a graph, {rec['ms_l2_flushed']:.4f} L2-flushed), plain "
-        f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.5f} ms "
-        f"({rec['bound_by']}), |da| {d_a:.2e}")
-    return rec
+    plain_ms = time_each_ms(lambda: lk_iterate.lk_iterate_plain(*args),
+                            reps=10)
+    out = {}
+    for lanes in lanes_list:
+        inst, used = lk_iterate.launch_shape(
+            T, lk_tile.sm_count(pJ.device), win, P, lanes)
+        call = lambda: lk_iterate.lk_iterate(*args, _lanes=lanes)
+        a_k, eig_k, err_k = call()
+        torch.cuda.synchronize()
+        require(bool(torch.equal(ok, eig_k >= min_eig_threshold)),
+                f"lk_iterate ({used} lanes): the min_eig gate differs")
+        require(bool(torch.isfinite(a_k[ok]).all()), "non-finite anchors")
+        d_a = float((a_k[ok] - a_p[ok]).abs().max())
+        d_eig = float(((eig_k[ok] - eig_p[ok]).abs()
+                       / eig_p[ok].abs().clamp(min=1e-6)).max())
+        d_err = float((err_k[ok] - err_p[ok]).abs().max())
+        require(d_a <= 2e-3, f"lk_iterate ({used} lanes): a_final differs "
+                             f"by {d_a} px")
+        require(d_eig <= 1e-4, f"lk_iterate ({used} lanes): min_eig differs "
+                               f"by {d_eig}")
+        require(d_err <= 1e-2, f"lk_iterate ({used} lanes): err differs by "
+                               f"{d_err}")
+        rec = dict(
+            T=T, win=win, P=P, instantiation=inst, lanes=used,
+            kept=int(ok.sum()), max_abs_err=d_a, min_eig_rel=d_eig,
+            err_abs=d_err, ms=time_ms(call), ms_graph=time_graph_ms(call),
+            ms_l2_flushed=time_each_ms(call, flush=flush), plain_ms=plain_ms,
+            bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations",
+            bound_working=dict(bytes=nbytes, flops=flops,
+                               newton_steps=int(n_it.sum()), bytes_ms=b_ms,
+                               operations_ms=o_ms))
+        log(f"lk_iterate T={T} win={win} lanes={used}: kernel "
+            f"{rec['ms']:.4f} ms ({rec['ms_graph']:.4f} in a graph, "
+            f"{rec['ms_l2_flushed']:.4f} L2-flushed), plain "
+            f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.5f} ms "
+            f"({rec['bound_by']}), |da| {d_a:.2e}")
+        out[used] = rec
+    return out
 
 
-def phase_kernel_iterate(pair_in, fleet_in, flush, config):
+def iterate_calls(inputs, **kw):
+    """The argument lists ``lk_track_pyr(impl="pallas")`` hands the
+    Newton-loop kernel on ``inputs`` (its (args, kwargs)): one a level."""
+    from mqslam_tpu_torch.ops import lk, lk_iterate
+    args, kw0 = inputs
+    rec = record_calls(lk_iterate, "lk_iterate", lambda: lk.lk_track_pyr(
+        *args, impl="pallas", **kw0, **kw))
+    require(len(rec) == 3, f"impl='pallas' made {len(rec)} Newton-loop "
+                           "calls, expected 3")
+    return [a for a, _ in rec]
+
+
+def phase_kernel_iterate(pair_in, fleet_in, flush):
     """K4 (lk_iterate.lk_iterate) against its plain version on the three
     calls ``lk_track_pyr(impl="pallas")`` makes at T = 384 (a) and
-    T = 6144 (b)."""
-    from mqslam_tpu_torch.ops import lk, lk_iterate
+    T = 6144 (b), each at both lane shapes (32 and 128 threads a track),
+    with the registers and resident warps of each instantiation."""
+    from mqslam_tpu_torch.ops import lk_iterate, lk_tile
     inputs = {}
-    for key, (args, kw) in (("a", pair_in), ("b", fleet_in)):
-        rec = record_calls(lk_iterate, "lk_iterate", lambda: lk.lk_track_pyr(
-            *args, impl="pallas", **kw))
-        require(len(rec) == config.lk_levels, "expected one call per level")
-        inputs[key] = sum_levels([
-            hold_iterate(a, flush, 1e-4) for a, _ in rec])
+    for key, inp in (("a", pair_in), ("b", fleet_in)):
+        held = [hold_iterate(a, flush, 1e-4, lk_tile.LANE_SHAPES)
+                for a in iterate_calls(inp)]
+        recs = {n: sum_levels([h[n] for h in held])
+                for n in lk_tile.LANE_SHAPES}
+        T = held[0][32]["T"]
+        rule = lk_iterate.launch_shape(T, lk_tile.sm_count(flush.device),
+                                       *lk_tile.SPECIALISED)[1]
+        inputs[key] = with_lane_shapes(recs, rule)
     a = inputs["a"]
+    info = [lk_iterate.kernel_info(21, 36, n) for n in lk_tile.LANE_SHAPES]
+    info.append(lk_iterate.kernel_info(15, 30, 32))
     return dict(
         name="lk_iterate", route="cuda",
         source="mqslam_tpu_torch/csrc/lk_iterate.cu",
         replaces="mqslam_tpu/ops/lk_pallas.py:129", launches=None,
-        max_abs_err=max(v["max_abs_err"] for v in inputs.values()),
+        max_abs_err=max(max(r["max_abs_err"]
+                            for r in v["lane_shapes"].values())
+                        for v in inputs.values()),
         ms=a["ms"], ms_graph=a["ms_graph"], ms_l2_flushed=a["ms_l2_flushed"],
         plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-        bound_by=a["bound_by"], library_ms=None,
+        bound_by=a["bound_by"], library_ms=None, lanes=a["lanes"],
+        **occupancy(info, info[lk_tile.LANE_SHAPES.index(a["lanes"])]),
         note="top-level numbers are input (a): the three level calls of one "
-             "impl='pallas' LK call at T = 384 on the bench's 640x480 pair; "
-             "inputs.b the fleet's T = 6144 atlas; compared on the tracks "
+             "impl='pallas' LK call at T = 384 on the bench's 640x480 pair, "
+             "at the rule's threads a track; inputs.b the fleet's T = 6144 "
+             "atlas; each with lane_shapes at both; compared on the tracks "
              "whose min_eig passes the driver's 1e-4 gate; " + TIMING_NOTE,
         inputs=inputs)
 
@@ -950,6 +1035,9 @@ def phase_single_agent(single, config, device, tile_launches_before):
         launches={"lk_strip": launches, "lk_level": 0}), res, launches
 
 
+ROUNDS = 5   # alternating rounds of the two extractions in lk_modes
+
+
 def phase_lk_modes(pair_in, fleet_in, config):
     """The explicit LK modes at T = 384 (the bench's pair) and T = 6144 (the
     fleet's agent-contiguous atlas): each call with every launch count set to
@@ -1005,11 +1093,17 @@ def phase_lk_modes(pair_in, fleet_in, config):
                 f"{key}: pallas and xla (square patches) differ in status")
         d_pal = float((pal[0] - square[0])[pal[1]].abs().max())
         require(d_pal <= 2e-3, f"{key}: pallas vs xla: {d_pal} px")
-        ms = {impl: time_each_ms(lambda: run(impl), reps=5)
-              for impl in ("xla", "pallas")}
-        ms["xla_square"] = time_each_ms(lambda: run("xla",
-                                                    dma_extract=False),
-                                        reps=5)
+        # dma_extract's default: the two extractions in ROUNDS alternating
+        # rounds (ABBA order), each the median of 5 calls
+        modes = {"xla": lambda: run("xla"),
+                 "xla_square": lambda: run("xla", dma_extract=False)}
+        rounds = {k: [] for k in modes}
+        for i in range(ROUNDS):
+            for k in (modes if i % 2 == 0 else reversed(list(modes))):
+                rounds[k].append(time_each_ms(modes[k], reps=5))
+        ms = {k: statistics.median(v) for k, v in rounds.items()}
+        ms["pallas"] = time_each_ms(lambda: run("pallas"), reps=5)
+        wins = sum(x < y for x, y in zip(rounds["xla"], rounds["xla_square"]))
         # the early exit's host read per Newton iteration against running
         # all iterations with the done tracks frozen
         real = lk._all_done
@@ -1028,12 +1122,18 @@ def phase_lk_modes(pair_in, fleet_in, config):
             valid={"xla": int(xla[1].sum()), "pallas": int(pal[1].sum()),
                    "fused": int(fused[1].sum())},
             xla_vs_fused_max_px=d_max, xla_vs_fused_median_px=d_med,
-            pallas_vs_xla_square_max_px=d_pal, ms_per_call=ms)
+            pallas_vs_xla_square_max_px=d_pal, ms_per_call=ms,
+            dma_extract_rounds=dict(rounds, dma_faster_in=wins,
+                                    of=ROUNDS))
         log(f"lk_modes {key}: " + ", ".join(f"{k} {v:.3f} ms"
                                             for k, v in ms.items()))
     rec["launches"] = total
     rec["note"] = ("ms_per_call: median of 5 calls, each between its own "
-                   "pair of CUDA events (host gaps inside count); "
+                   "pair of CUDA events (host gaps inside count); xla "
+                   "(dma_extract's default, the extraction kernel) and "
+                   "xla_square (dma_extract=False): "
+                   f"the median of {ROUNDS} such figures taken in "
+                   "alternating rounds (dma_extract_rounds); "
                    "xla_all_iterations: the Newton loop without its "
                    "per-iteration host read")
     return rec, total["extract"], total["lk_iterate"]
@@ -1269,16 +1369,17 @@ def main():
         k2 = phase_kernel_strip(single, config, tile_calls, tile_outs, flush,
                                 device)
         del tile_calls, tile_outs
-        log("phase kernels: generic window (win = 15)")
-        generic = phase_kernel_generic(pair, pair_in, flush, device)
-        for k, impl in ((k1, "tiled"), (k2, "fused")):
-            k["generic_window"] = generic[impl]
-            k["max_abs_err"] = max(k["max_abs_err"],
-                                   generic[impl]["max_abs_err"])
         log("phase kernels: extract")
         k3 = phase_kernel_extract(pair_in, fleet_in, flush)
         log("phase kernels: iterate")
-        k4 = phase_kernel_iterate(pair_in, fleet_in, flush, config)
+        k4 = phase_kernel_iterate(pair_in, fleet_in, flush)
+        log("phase kernels: generic window (win = 15)")
+        generic = phase_kernel_generic(pair, pair_in, flush, device)
+        for k, impl in ((k1, "tiled"), (k2, "fused"), (k3, "xla"),
+                        (k4, "pallas")):
+            k["generic_window"] = generic[impl]
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   generic[impl]["max_abs_err"])
         del flush
         log("phase main_path (16 agents)")
         main_path, k1["launches"] = phase_main_path(cal, config, states,

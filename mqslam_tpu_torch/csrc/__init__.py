@@ -63,8 +63,8 @@ def _target(name):
 
 def build_all(names=None):
     """Compile every (or the named) kernel source that has no up-to-date
-    library yet, all ``nvcc`` processes started together.  Returns
-    {name: compiler output}."""
+    library yet, all ``nvcc`` processes started together (and all waited
+    for, even when one fails).  Returns {name: compiler output}."""
     global last_build_seconds
     names = sources() if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -79,13 +79,16 @@ def build_all(names=None):
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
-    logs = {}
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():     # every nvcc ends here
+        logs[name], _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        os.replace(tmp, out)
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed[0]}.cu:\n"
+                           f"{logs[failed[0]]}")
     if procs:
         last_build_seconds = time.perf_counter() - t0
     return logs

@@ -5,9 +5,11 @@
 // replaces mqslam_tpu/ops/lk_fused_pallas.py::lk_level_fused) run it through
 // `track_level_fixed` (the window of the main paths) or `track_level` (any
 // other window); lk_iterate.cu (K4, each track on its own pre-extracted
-// patches) runs `track_warp`.  The caller gives the images a track reads (`J`,
-// `I`: row-major, float or bf16, each with its own extent) and corners in
-// THOSE images' coordinates; every global read is clamped to its image.
+// patches; replaces mqslam_tpu/ops/lk_pallas.py::lk_iterate_pallas) runs
+// `track_fixed` for the main paths' window and `track_warp` for any other.
+// The caller gives the images a track reads (`J`, `I`: row-major, float or
+// bf16, each with its own extent) and corners in THOSE images' coordinates;
+// every global read is clamped to its image.
 //
 // Per track: stage a (win+3)^2 template region and a P^2 search region, form
 // the lerped template window, its central-difference gradients and the 2x2
@@ -167,8 +169,8 @@ __device__ __forceinline__ void structure(float g00, float g01, float g11,
 // One warp per track with runtime win and P: the template region is staged,
 // the lerped (win+2)^2 grid C and the gradients are kept in shared memory,
 // then the search region is staged over the template area and the Newton
-// loop runs out of shared memory.  The level kernels take it for a window
-// other than (kWin, kP); K4 runs it for every call.
+// loop runs out of shared memory.  All three LK kernels take it for a window
+// other than (kWin, kP).
 
 // Floats of shared memory one warp needs.
 __host__ __device__ inline int warp_floats(int win, int P) {
@@ -340,11 +342,14 @@ __host__ __device__ constexpr int search_pitch(int win, int P) {
   return P + (((win - P) % 32) + 32) % 32;
 }
 
-template <int WIN, int P, int LANES>
+// SP, the search row pitch, is search_pitch's unless a kernel stages its
+// search region another way (K4's 16-byte copies, lk_iterate.cu).
+template <int WIN, int P, int LANES, int SP_ = search_pitch(WIN, P)>
 struct Shape {
   static_assert(LANES == 32 || LANES == 128, "32 or 128 threads a track");
+  static_assert(SP_ >= P, "the search pitch holds a row");
   static constexpr int RJ = WIN + 3;                  // template region side
-  static constexpr int SP = search_pitch(WIN, P);     // search row pitch
+  static constexpr int SP = SP_;                      // search row pitch
   static constexpr int NWIN = WIN * WIN;
   static constexpr int NE = (NWIN + LANES - 1) / LANES;  // elements a thread
   static constexpr int WARPS = LANES / 32;
@@ -476,38 +481,24 @@ __device__ __forceinline__ float tap_diff(const float* p, const float (&w)[4],
   return fmaf(w[3], p[SP + 1], d);
 }
 
-// One track by a group of LANES threads (thread `tid` of the group, named
-// barrier `bar_id`), with the contract of track_warp; `smem` is the group's
-// Shape<WIN, P, LANES>::FLOATS floats.
-template <int WIN, int P, int LANES, typename T>
-__device__ void track_fixed(
-    const T* __restrict__ J, int rowsJ, int colsJ, int cyJ, int cxJ,
-    float ayJ, float axJ,
-    const T* __restrict__ I, int rowsI, int colsI, int cyI, int cxI,
-    float ay, float ax,
+// The rest of a track once both regions are in the group's shared memory
+// (`smem` as Shape<WIN, P, LANES, SP> lays it out: the template region
+// [RJ][RJ] at the region corner's anchor fractions (fyJ, fxJ), the search
+// region [P][SP], then the partials; staged, waited for and synced): the
+// window elements, G, the Newton loop from (ay, ax) and the error, with the
+// contract of track_warp.
+template <int WIN, int P, int LANES, int SP>
+__device__ __forceinline__ void track_staged(
+    float* smem, float fyJ, float fxJ, float ay, float ax,
     float* __restrict__ a_out, float* __restrict__ eig_out,
-    float* __restrict__ err_out, float* smem, int tid, int bar_id,
-    int iters, float eps, float hiX, int want_err) {
-  using S = Shape<WIN, P, LANES>;
-  constexpr int RJ = S::RJ, SP = S::SP, NE = S::NE;
-  float* tmpl = smem;                     // [RJ][RJ]
-  float* srch = smem + RJ * RJ;           // [P][SP]
-  float* red = srch + P * SP;             // [2][WARPS][4] (LANES > 32)
+    float* __restrict__ err_out, int tid, int bar_id, int iters, float eps,
+    float hiX, int want_err) {
+  using S = Shape<WIN, P, LANES, SP>;
+  constexpr int RJ = S::RJ, NE = S::NE;
+  const float* tmpl = smem;               // [RJ][RJ]
+  const float* srch = smem + RJ * RJ;     // [P][SP]
+  float* red = smem + RJ * RJ + P * SP;   // [2][WARPS][4] (LANES > 32)
   int parity = 0;
-
-  // ---- both regions requested together, one wait ----
-  const int iyJ = floor_clamped(ayJ, 0, 1 << 20);
-  const int ixJ = floor_clamped(axJ, 0, 1 << 20);
-  const float fyJ = ayJ - (float)iyJ;
-  const float fxJ = axJ - (float)ixJ;
-  // corners are clamped before they meet the anchor or a row stride
-  stage_region<RJ, RJ, LANES>(tmpl, J, rowsJ, colsJ,
-                              clampi(cyJ, 0, rowsJ - 1) + iyJ - 1,
-                              clampi(cxJ, 0, colsJ - 1) + ixJ - 1, tid);
-  stage_region<P, SP, LANES>(srch, I, rowsI, colsI, clampi(cyI, 0, rowsI - 1),
-                             clampi(cxI, 0, colsI - 1), tid);
-  stage_wait();
-  group_sync<LANES>(bar_id);
 
   // ---- this thread's window elements: J, dx, dy, tap offset ----
   // C[k][m] is the template lerped at (k, m) of the region, rows first, then
@@ -595,6 +586,37 @@ __device__ void track_fixed(
   }
 }
 
+// One track by a group of LANES threads (thread `tid` of the group, named
+// barrier `bar_id`), with the contract of track_warp; `smem` is the group's
+// Shape<WIN, P, LANES>::FLOATS floats.  Both regions are requested together
+// and waited for once.
+template <int WIN, int P, int LANES, typename T>
+__device__ void track_fixed(
+    const T* __restrict__ J, int rowsJ, int colsJ, int cyJ, int cxJ,
+    float ayJ, float axJ,
+    const T* __restrict__ I, int rowsI, int colsI, int cyI, int cxI,
+    float ay, float ax,
+    float* __restrict__ a_out, float* __restrict__ eig_out,
+    float* __restrict__ err_out, float* smem, int tid, int bar_id,
+    int iters, float eps, float hiX, int want_err) {
+  using S = Shape<WIN, P, LANES>;
+  constexpr int RJ = S::RJ, SP = S::SP;
+  const int iyJ = floor_clamped(ayJ, 0, 1 << 20);
+  const int ixJ = floor_clamped(axJ, 0, 1 << 20);
+  // corners are clamped before they meet the anchor or a row stride
+  stage_region<RJ, RJ, LANES>(smem, J, rowsJ, colsJ,
+                              clampi(cyJ, 0, rowsJ - 1) + iyJ - 1,
+                              clampi(cxJ, 0, colsJ - 1) + ixJ - 1, tid);
+  stage_region<P, SP, LANES>(smem + RJ * RJ, I, rowsI, colsI,
+                             clampi(cyI, 0, rowsI - 1),
+                             clampi(cxI, 0, colsI - 1), tid);
+  stage_wait();
+  group_sync<LANES>(bar_id);
+  track_staged<WIN, P, LANES, SP>(smem, ayJ - (float)iyJ, axJ - (float)ixJ,
+                                  ay, ax, a_out, eig_out, err_out, tid,
+                                  bar_id, iters, eps, hiX, want_err);
+}
+
 // track_level's contract for the compile-time window.
 template <int WIN, int P, int LANES, typename T>
 __device__ __forceinline__ void track_level_fixed(
@@ -625,11 +647,13 @@ __device__ __forceinline__ void track_level_fixed(
 // threads of a persistent grid.  A 32-lane group takes its next track from
 // the counter `next` (zeroed before the launch) when it is done with one; a
 // 128-lane group (one a block) strides by the grid.  The group syncs before
-// its shared memory is staged again.
-template <int WIN, int P, int LANES, typename F>
+// its shared memory is staged again.  A group's shared memory is
+// Shape<WIN, P, LANES, SP>::FLOATS floats.
+template <int WIN, int P, int LANES, int SP = search_pitch(WIN, P),
+          typename F>
 __device__ __forceinline__ void for_each_track(int T, int* next, float* smem,
                                                F&& fn) {
-  using S = Shape<WIN, P, LANES>;
+  using S = Shape<WIN, P, LANES, SP>;
   const int g = threadIdx.x / LANES, tid = threadIdx.x % LANES;
   // barrier 0 is __syncthreads'; one group a block names barrier 1 as a
   // constant, so ptxas reserves no other (a runtime id reserves all 16 and

@@ -26,17 +26,25 @@ An exact copy: the kernel and the plain version are bit-equal.  On a CUDA
 tensor ``extract_patches_dma`` launches the kernel (``csrc/extract.cu``) or
 raises; the plain version serves CPU tensors, and the comparison on the
 card.  ``launches`` counts kernel launches and nothing else.
+
+The kernel has two paths (``PATHS``; the source says how each copies,
+and what each measured), and ``kernel_path(P)`` picks one from P alone:
+``"vec4"`` (a thread copies four floats of one row with one 16-byte store)
+when P % 4 == 0 — both sides of the main paths' window, 24 and 36 — else
+``"element"``.
 """
 
 import ctypes
 
 import torch
 
-__all__ = ["ROWS_CAP", "dma_extract_supported", "extract_patches_dma",
+__all__ = ["ROWS_CAP", "PATHS", "dma_extract_supported", "kernel_path",
+           "check_path", "extract_patches_dma",
            "extract_patches_plain", "launches"]
 
 ROWS_CAP = 48          # patch rows: 8-aligned, >= 8-residual + P(<=38) rows
 _STRIP_COLS = 256      # the TPU strip's width, which the column cap keeps
+PATHS = ("vec4", "element")    # the kernel's paths, its codes 0, 1
 
 launches = 0
 
@@ -46,6 +54,24 @@ _lib = None
 def dma_extract_supported(H: int, W: int) -> bool:
     """Image large enough for the extractor's clamps."""
     return H >= ROWS_CAP and W >= _STRIP_COLS
+
+
+def kernel_path(P: int) -> str:
+    """The kernel's path for patches of P columns: ``"vec4"`` when P % 4 ==
+    0 (a patch row is then whole 16-byte units), else ``"element"``.  The
+    kernel refuses the four-float path for any other P."""
+    return "vec4" if P % 4 == 0 else "element"
+
+
+def check_path(path, P: int):
+    """Raise on a forced path no launch takes: not one of ``PATHS``, or
+    the four-float path ``"vec4"`` for P % 4 != 0."""
+    if path is None:
+        return
+    if path not in PATHS:
+        raise ValueError(f"_path must be one of {PATHS}, got {path!r}")
+    if path == "vec4" and P % 4:
+        raise ValueError(f"_path={path!r} needs P % 4 == 0, got P = {P}")
 
 
 def _clamped_corners(cy, cx, H, W, P):
@@ -95,17 +121,23 @@ def _library():
         from mqslam_tpu_torch import csrc
         lib = csrc.load("extract")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.extract_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.extract_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.extract_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def extract_patches_dma(img, corner_yx, P: int):
+def extract_patches_dma(img, corner_yx, P: int, _path=None):
     """The extraction for tensors on one device: the CUDA kernel for CUDA
     tensors (launched on the current stream, no sync; raises if it cannot
-    build or launch), the plain version for CPU tensors."""
+    build or launch), the plain version for CPU tensors.
+
+    ``_path`` forces one of ``PATHS`` instead of ``kernel_path(P)`` (checked
+    before the device is looked at), so that each path can be held against
+    the plain version on the card; it changes no result and is not an option
+    of any caller."""
     global launches
+    check_path(_path, P)
     if img.device.type == "cpu":
         return extract_patches_plain(img, corner_yx, P)
     if img.device.type != "cuda":
@@ -116,6 +148,7 @@ def extract_patches_dma(img, corner_yx, P: int):
         if not x.is_contiguous():
             raise ValueError(f"extract_patches_dma: {name} must be "
                              "contiguous")
+    path = kernel_path(P) if _path is None else _path
     T = corner_yx.shape[0]
     H, W = img.shape
     out = torch.empty((T, ROWS_CAP, P), dtype=torch.float32,
@@ -126,9 +159,10 @@ def extract_patches_dma(img, corner_yx, P: int):
     with torch.cuda.device(img.device):
         rc = lib.extract_launch(
             img.data_ptr(), corner_yx.data_ptr(), out.data_ptr(),
-            y0.data_ptr(), cx.data_ptr(), T, H, W, P,
+            y0.data_ptr(), cx.data_ptr(), T, H, W, P, PATHS.index(path),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"extract kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"extract kernel launch failed ({path} path): "
+                           f"CUDA error {rc}")
     launches += 1
     return out, y0, cx

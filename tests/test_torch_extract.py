@@ -27,9 +27,11 @@ def corners(H, W, P, T=100, seed=1):
     return np.concatenate([c, far]).astype(np.int32)
 
 
-# tile multiples, and dims that are not (the clamp caps differ there)
+# tile multiples, and dims that are not (the clamp caps differ there); the
+# main window's sides (24, 36: the vec4 path on the card) and win = 15's
+# (18, 30) and 38 (the element path)
 @pytest.mark.parametrize("H,W", [(512, 768), (517, 781), (48, 256)])
-@pytest.mark.parametrize("P", [24, 36, 38])
+@pytest.mark.parametrize("P", [18, 24, 30, 36, 38])
 def test_matches_pallas_kernel(H, W, P):
     img = image(H, W)
     c = corners(H, W, P)
@@ -103,3 +105,43 @@ def test_wrapper_refusals():
     with pytest.raises(RuntimeError, match="unsupported device"):
         extract.extract_patches_dma(img.to("meta"), c.to("meta"), 24)
     assert extract.launches == n0
+
+
+@pytest.mark.parametrize("P,want", [(18, "element"), (24, "vec4"),
+                                    (30, "element"), (36, "vec4"),
+                                    (38, "element")])
+def test_kernel_path(P, want):
+    """The path is a function of P alone: the four-float path needs whole
+    16-byte row pieces (P % 4 == 0)."""
+    assert extract.kernel_path(P) == want
+    extract.check_path(want, P)
+
+
+@pytest.mark.parametrize("path,P,match", [
+    ("dma", 24, "_path must be one of"), ("TMA", 24, "_path must be one of"),
+    (0, 24, "_path must be one of"), ("tma", 36, "_path must be one of"),
+    ("vec4", 30, "P % 4 == 0"), ("vec4", 18, "P % 4 == 0")])
+def test_forced_path_refusals(path, P, match):
+    img = torch.tensor(image(64, 256))
+    c = torch.tensor(corners(64, 256, P))
+    with pytest.raises(ValueError, match=match):
+        extract.check_path(path, P)
+    # checked before the device is looked at: no launch is counted
+    n0 = extract.launches
+    with pytest.raises(ValueError, match=match):
+        extract.extract_patches_dma(img.to("meta"), c.to("meta"), P,
+                                    _path=path)
+    assert extract.launches == n0
+
+
+@pytest.mark.parametrize("path,P", [("vec4", 24), ("element", 24),
+                                    ("vec4", 36), ("element", 36),
+                                    ("element", 30)])
+def test_forced_path_on_cpu_is_the_plain_version(path, P):
+    img = torch.tensor(image(96, 300, seed=6))
+    c = torch.tensor(corners(96, 300, P, seed=7))
+    n0 = extract.launches
+    got = extract.extract_patches_dma(img, c, P, _path=path)
+    assert extract.launches == n0
+    for x, y in zip(got, extract.extract_patches_plain(img, c, P)):
+        assert torch.equal(x, y)

@@ -110,3 +110,44 @@ def test_wrapper_refusals():
     with pytest.raises(RuntimeError, match="unsupported device"):
         lk_iterate.lk_iterate(*meta)
     assert lk_iterate.launches == n0
+
+
+def test_wrapper_refuses_forced_lanes():
+    """``_lanes`` (for holding each instantiation on the card) is checked
+    before the device is looked at: a shape that is not one of the two, or
+    128 threads for the generic window, raises, and nothing launches."""
+    pJ, pI, aJ, a0 = (torch.tensor(x) for x in patches(4, 5))
+    ref = lk_iterate.lk_iterate(pJ, pI, aJ, a0, WIN, 30, 0.01)
+    for lanes in (32, 128):
+        got = lk_iterate.lk_iterate(pJ, pI, aJ, a0, WIN, 30, 0.01,
+                                    _lanes=lanes)
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)
+    n0 = lk_iterate.launches
+    meta = [x.to("meta") for x in (pJ, pI, aJ, a0)]
+    with pytest.raises(ValueError, match="_lanes must be one of"):
+        lk_iterate.lk_iterate(*meta, WIN, 30, 0.01, _lanes=64)
+    # win = 15 on patches of 30: the generic window, one warp a track
+    small = (pJ[:, :18, :18].contiguous(), pI[:, :30, :30].contiguous())
+    lk_iterate.lk_iterate(*small, aJ, a0.clamp(max=13.0), 15, 30, 0.01,
+                          _lanes=32)
+    with pytest.raises(ValueError, match="generic window"):
+        lk_iterate.lk_iterate(*(x.to("meta") for x in small),
+                              aJ.to("meta"), a0.to("meta"), 15, 30, 0.01,
+                              _lanes=128)
+    assert lk_iterate.launches == n0
+
+
+@pytest.mark.parametrize("ptrs,ok", [
+    ((0x7f0000000000, 0x7f0000100000), True), ((0x200, 0x1010), True),
+    ((0x7f0000000004, 0x7f0000100000), False),
+    ((0x7f0000000000, 0x7f0000100008), False)])
+def test_alignment_check(ptrs, ok):
+    """The compiled-in window's kernel copies patches 16 bytes at a time:
+    both patch tensors must start 16-byte aligned, or the wrapper raises
+    (no fallback)."""
+    if ok:
+        lk_iterate.check_alignment(*ptrs)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            lk_iterate.check_alignment(*ptrs)

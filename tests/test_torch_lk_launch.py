@@ -1,5 +1,7 @@
-"""What surrounds the two level kernels' launches (``ops/lk_tile`` for K1,
-``ops/lk_fused`` for K2), in the plain Python the CPU reaches: the threads a
+"""What surrounds the launches of the kernels that run the per-track LK
+function (``ops/lk_tile`` for K1, ``ops/lk_fused`` for K2, ``ops/lk_iterate``
+for K4, which follows the level kernels' rule), in the plain Python the CPU
+reaches: the threads a
 track (``lanes_per_track``) from the track count and the SM count, the choice
 between the compiled-in window and the generic code (``instantiation``), and
 the wrappers' checks of the private ``_lanes`` argument, which forces a lane
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from mqslam_tpu_torch.ops import lk as tlk, lk_fused, lk_tile
+from mqslam_tpu_torch.ops import lk as tlk, lk_fused, lk_iterate, lk_tile
 
 H100_SMS = 132
 
@@ -84,6 +86,30 @@ def test_generic_window_takes_one_warp_only():
         lk_tile.kernel_info(15, 30, 128)          # refused before any build
     with pytest.raises(ValueError, match="generic window"):
         lk_fused.kernel_info(15, 30, 128)
+    with pytest.raises(ValueError, match="generic window"):
+        lk_iterate.kernel_info(15, 30, 128)
+
+
+# K4 (the Newton loop on patches) at the windows lk_track_pyr(impl="pallas")
+# hands it: win = 21 with search patches of 36 (the compiled-in window) at
+# the single agent's and the fleet's track counts, and win = 15 (P = 30)
+@pytest.mark.parametrize("T,win,P,want", [
+    (384, 21, 36, ("specialised", 128)), (6144, 21, 36, ("specialised", 32)),
+    (384, 15, 30, ("generic", 32)), (6144, 15, 30, ("generic", 32))])
+def test_iterate_launch_shape(T, win, P, want):
+    assert lk_iterate.launch_shape(T, H100_SMS, win, P) == want
+
+
+def test_iterate_forced_lanes():
+    spec = lk_tile.SPECIALISED
+    assert lk_iterate.launch_shape(384, H100_SMS, *spec, _lanes=32) == \
+        ("specialised", 32)
+    assert lk_iterate.launch_shape(6144, H100_SMS, *spec, _lanes=128) == \
+        ("specialised", 128)
+    with pytest.raises(ValueError, match="_lanes must be one of"):
+        lk_iterate.launch_shape(384, H100_SMS, *spec, _lanes=64)
+    with pytest.raises(ValueError, match="generic window"):
+        lk_iterate.launch_shape(384, H100_SMS, 15, 30, _lanes=128)
 
 
 def level_args(win, n=24, seed=5):
@@ -109,11 +135,22 @@ def level_args(win, n=24, seed=5):
 def call(module, args, win, hiX, **kw):
     if module is lk_tile:
         return lk_tile.lk_level(*args, 1, win, 30, 0.01, hiX, **kw)
+    if module is lk_iterate:
+        # each track's own patches at its corners (the driver's square
+        # extraction): the template's win + 3, the search region's P
+        J, I, cJ, cI, aJ, a0 = args[:6]
+        P = lk_tile.search_side(win, hiX)
+        return lk_iterate.lk_iterate(tlk._extract_patches(J, cJ, win + 3)[0],
+                                     tlk._extract_patches(I, cI, P)[0], aJ,
+                                     a0, win, 30, 0.01, **kw)
     return lk_fused.lk_level(*args, win, 30, 0.01, hiX, **kw)
 
 
-@pytest.mark.parametrize("module", [lk_tile, lk_fused],
-                         ids=["lk_tile", "lk_fused"])
+MODULES = [lk_tile, lk_fused, lk_iterate]
+MODULE_IDS = ["lk_tile", "lk_fused", "lk_iterate"]
+
+
+@pytest.mark.parametrize("module", MODULES, ids=MODULE_IDS)
 @pytest.mark.parametrize("lanes", [32, 128])
 def test_forced_lanes_on_cpu_is_the_plain_version(module, lanes):
     args, win, hiX = level_args(21)
@@ -125,8 +162,7 @@ def test_forced_lanes_on_cpu_is_the_plain_version(module, lanes):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("module", [lk_tile, lk_fused],
-                         ids=["lk_tile", "lk_fused"])
+@pytest.mark.parametrize("module", MODULES, ids=MODULE_IDS)
 def test_wrapper_checks_forced_lanes(module):
     args, win, hiX = level_args(21)
     with pytest.raises(ValueError, match="_lanes must be one of"):
