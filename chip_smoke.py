@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
-``nvcc``, PIL for the command-line phase, and nothing else; imports only
-``mqslam_tpu_torch``.  It
+``nvcc``, PIL for the command-line phase, the repo's ``artifacts/icl_r5b``
+dump, and nothing else; imports only ``mqslam_tpu_torch``.  It
 
   1. builds every kernel under ``mqslam_tpu_torch/csrc/`` from source and
      fails if ptxas spilled registers in any of them,
@@ -42,16 +42,28 @@ Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
      before each call and read just after, held against ``impl="fused"`` and
      against each other, and times ``impl="xla"`` with and without the
      extraction kernel in alternating rounds (``dma_extract``'s default),
-  6. runs the port bench's LK and triangulation sections once at their full
-     sizes (``python -m mqslam_tpu_torch.bench`` runs the whole bench),
+  6. runs the port bench's LK, triangulation and BA sections once at their
+     full sizes (``python -m mqslam_tpu_torch.bench`` runs the whole bench),
   7. runs both paths and both LK modes on the card against themselves on the
-     CPU at a small size.
+     CPU at a small size,
+  8. bundle-adjusts the in-repo ICL dump (``artifacts/icl_r5b``: 200 poses,
+     798 landmarks) through ``cli.ba_run.main`` on the card and holds the
+     result against the JAX package's checked-in output; times ``lm_solve``,
+     ``lm_solve_device`` (the same loop), the linearization, the dense solve
+     and the factor Jacobians; checks that the solve runs in full float32 with TF32 on
+     globally; and holds one linearization and dense solve against the
+     CPU's,
+  9. closes the main path: the single-agent run's own dump through
+     ``ba_run``, then ``evaluate_ate`` / ``evaluate_rpe`` on the front-end
+     and the bundle-adjusted trajectories against the ground truth.
 
 Every phase must pass; the last line of the output is
 ``{"ok": true, "device": {...}}``.  One JSON object per line before it.
 """
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import multiprocessing
 import statistics
@@ -1141,18 +1153,23 @@ def phase_lk_modes(pair_in, fleet_in, config):
 
 def phase_bench(pair, device):
     """The port bench's LK section (four impls, 384 tracks, the bench's
-    640x480 pair, 30 calls, best of 3) and triangulation section (four
-    methods, N = 65536) once at their full sizes."""
+    640x480 pair, 30 calls, best of 3), triangulation section (four
+    methods, N = 65536) and BA section (the 2-robot cube, 15 LM iterations,
+    best of 2) once at their full sizes."""
     from mqslam_tpu_torch import bench
     lk_ms = bench.bench_lk_impls(pair, device=device)
     tri = bench.bench_triangulation(device=device)
+    ba = bench.bench_ba_iters(device=device)
+    require(all(np.isfinite(ba[k]) and ba[k] > 0 for k in (
+        "ba_lm_iterations_per_s", "ba_lm_iterations_per_s_host_loop")),
+        f"bench BA section {ba}")
     require(all(np.isfinite(v) and v > 0 for v in lk_ms.values())
             and set(lk_ms) == set(bench.LK_IMPLS), f"lk_per_call_ms {lk_ms}")
     require(all(np.isfinite(v) and v > 0 for v in tri.values()),
             f"triangulation {tri}")
-    log(f"bench: LK ms per call {lk_ms}")
+    log(f"bench: LK ms per call {lk_ms}; BA {ba}")
     return dict(lk_per_call_ms=lk_ms, triangulation_mpts_per_s=tri,
-                efficiency=bench.lk_efficiency(lk_ms))
+                efficiency=bench.lk_efficiency(lk_ms), **ba)
 
 
 def compare_dumps(a, b, skip=(), atol=1e-6):
@@ -1294,6 +1311,413 @@ def phase_cuda_vs_cpu(device):
                 lk_modes=lk_modes)
 
 
+# --------------------------------------------------------------------- BA --
+
+ICL_DUMP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "artifacts", "icl_r5b")
+
+
+def capture_results(module, name, run):
+    """``run()``'s result, and the results ``module.<name>`` returned while
+    it ran (the calls still run)."""
+    results = []
+    real = getattr(module, name)
+
+    def recorder(*args, **kw):
+        out = real(*args, **kw)
+        results.append(out)
+        return out
+
+    setattr(module, name, recorder)
+    try:
+        out = run()
+    finally:
+        setattr(module, name, real)
+    return out, results
+
+
+def run_ba_cli(argv, device):
+    """``cli.ba_run.main(argv)`` on ``device`` with its progress sent to the
+    log: (exit code, LM cost history, polish64's cost history, seconds)."""
+    from mqslam_tpu_torch.ba import polish64, solver as bs
+    from mqslam_tpu_torch.cli import ba_run
+    t0 = time.perf_counter()
+    ((rc, lm), pol), _ = quiet(lambda: capture_results(
+        polish64, "polish64", lambda: capture_results(
+            bs, "lm_solve",
+            lambda: ba_run.main(argv + ["--device", str(device)]))))
+    seconds = time.perf_counter() - t0
+    require(rc == 0 and len(lm) == 1 and len(pol) == 1,
+            f"ba_run.main returned {rc}")
+    return rc, lm[0][1], [float(x) for x in pol[0][1]], seconds
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output sent to the log (stderr): the
+    CLIs print their progress there, and this script's stdout holds its
+    records only.  Returns (result, what it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    sys.stderr.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def ba_variables_from_files(traj_file, map_file, device):
+    """BAVariables of a ``ba_run`` output pair (trajectory + map)."""
+    from mqslam_tpu_torch.ba.problem import BAVariables
+    from mqslam_tpu_torch.core import so3
+    from mqslam_tpu_torch.io import pcd, tum
+    from mqslam_tpu_torch.io.nputil import quat_to_matrix_np
+    traj = tum.load_trajectory(traj_file)
+    pts = pcd.load_pcd(map_file)[0]
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32).to(
+        device)
+    R = t(quat_to_matrix_np(traj.quaternions))
+    return BAVariables(so3.log(R), t(traj.locations), t(pts)), traj, pts
+
+
+def factor_jacobians(prob):
+    """The five factor Jacobians of ``linearize`` at ``prob.init`` (pose and
+    point of the projections, from and to of the odometry, the pose
+    prior), in the port's closed forms."""
+    from mqslam_tpu_torch.ba import factors, solver as bs
+    v = prob.init
+    p6 = bs._pose6(v)
+    p6o, pts, cal, inv_o = bs._gather_obs(prob, v)
+    inv_odo, inv_pp, _ = bs._weights(prob)
+    return (factors.obs_residual_jac(p6o, pts, prob.obs_uv, cal, inv_o)
+            + factors.odo_residual_jac(p6[prob.odo_from], p6[prob.odo_to],
+                                       prob.odo_r, prob.odo_t, inv_odo)
+            + (factors.prior_pose_residual_jac(
+                p6[prob.prior_pose_idx], prob.prior_pose_r,
+                prob.prior_pose_t, inv_pp),))
+
+
+def rel_diff(a, b):
+    """max |a - b| over max |b| (a on any device, b on the CPU)."""
+    return float((a.cpu().double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp(min=1e-30))
+
+
+def ba_step(prob, lam):
+    """One linearization and dense solve at ``prob.init``: {name: tensor}
+    for the linearization's fields, the reduced system S, b, the step, and
+    ``solve_rel``, the float32 Cholesky solve of this (S, b) against the
+    float64 solve of the same (S, b)."""
+    from mqslam_tpu_torch.ba import solver as bs
+    lin = bs.linearize(prob, prob.init)
+    S, b = bs._reduced_system(prob, lin, lam, bs._hpp_damped(lin, lam))
+    with bs._exact_f32():
+        x = bs._cholesky_solve(S, b)
+    x64 = torch.linalg.solve(S.double(), b.double())
+    dc, dp = bs.solve_delta_dense(prob, lin, lam)
+    out = {k: getattr(lin, k) for k in (
+        "r_obs", "J_obs_pose", "J_obs_point", "J_odo_from", "g_pose",
+        "g_point", "Hpp", "diag_pose", "point_free")}
+    out.update(S=S, b=b, delta_pose=dc, delta_point=dp,
+               solve_rel=rel_diff(x, x64.cpu()))
+    return out
+
+
+# What float32 does not resolve on the ICL dump, in either package: the pose
+# gradient at the first linearization is a sum of terms up to 300x larger
+# than itself, each carrying a residual accurate to ~2.5e-4 px, and b (its
+# reduced form) cancels again; the step inherits b's error, amplified ~5x
+# by the system's conditioning, and the card's atomic sums make that error
+# vary from run to run (0.3-2x the CPU's for the point step in six runs on
+# an H100, 1.99x at most): each is held against float64 at a factor of the
+# CPU's error
+VS_FLOAT64 = {"g_pose": 2.0, "b": 2.0, "delta_pose": 4.0, "delta_point": 4.0}
+
+
+def card_vs_cpu_step(prob, lam):
+    """One linearization and dense solve of ``prob`` (on the card) against
+    the same on the CPU: the linearization and S to 1e-4 relative (sums in
+    another order); the VS_FLOAT64 quantities against a float64 run of the
+    same code on each side instead (the card's float32 error at most its
+    factor times the CPU's, or 1e-4: the gradient and b 2x, the pose and
+    point steps, back-substitution included, 4x); the Cholesky solve on
+    each side to 1e-4 of the float64 solve of its own (S, b)."""
+    from mqslam_tpu_torch.ba import problem as bp
+    prob_cpu = bp.problem_to(prob, "cpu")
+    g, c = ba_step(prob, lam), ba_step(prob_cpu, lam)
+    g64, c64 = (ba_step(bp.problem_to(p, p.device, torch.float64), lam)
+                for p in (prob, prob_cpu))
+    require(torch.equal(g["point_free"].cpu(), c["point_free"]),
+            "card vs CPU: free points differ")
+    solve = {"card": g.pop("solve_rel"), "cpu": c.pop("solve_rel")}
+    require(max(solve.values()) <= 1e-4,
+            f"the float32 dense solve vs float64 on the same (S, b): {solve}")
+    out = dict(lam=lam, solve_vs_float64_same_system_rel=solve)
+    for k in g:
+        if k == "point_free":
+            continue
+        between = rel_diff(g[k], c[k])
+        factor = VS_FLOAT64.get(k)
+        if factor is None:
+            require(between <= 1e-4, f"card vs CPU: {k} {between} relative")
+            out[k] = dict(card_vs_cpu_rel=between)
+            continue
+        err = {"card": rel_diff(g[k], g64[k].cpu()),
+               "cpu": rel_diff(c[k], c64[k])}
+        require(err["card"] <= max(factor * err["cpu"], 1e-4),
+                f"{k}: float32 error on the card {err['card']}, on the "
+                f"CPU {err['cpu']} (vs float64; bound {factor}x)")
+        out[k] = dict(card_vs_cpu_rel=between,
+                      card_vs_float64_rel=err["card"],
+                      cpu_vs_float64_rel=err["cpu"])
+    return out
+
+
+def host_seconds(fn):
+    """(host seconds of ``fn()`` closed by a synchronize, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def ba_profile(prob, iters=5, top=6):
+    """``lm_solve(max_iters=iters)`` under ``torch.profiler`` (as
+    ``prof_torch_multi.py`` profiles the front-end): the device's busy time
+    and its idle share of the same solve's wall time without the profiler
+    (best of 2), device operations per LM iteration, the kernels that take
+    the most device time."""
+    from mqslam_tpu_torch.ba import solver as bs
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run = lambda: bs.lm_solve(prob, max_iters=iters)
+    run()
+    runs = [host_seconds(run) for _ in range(2)]
+    wall_ms = min(s / (len(h) - 1) for s, (_, h) in runs) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, hist = run()
+    n = len(hist) - 1
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    rows = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
+                   if dev_us(e) > 0 and e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3 / n
+    require(busy_ms > 0, "the profiler saw no device time in the BA solve")
+    return dict(
+        iterations=n, wall_ms_per_iteration=wall_ms,
+        device_busy_ms_per_iteration=busy_ms,
+        device_idle_share=1.0 - busy_ms / wall_ms,
+        device_ops_per_iteration=sum(r[2] for r in rows) / n,
+        top=[dict(name=k[:60], device_ms_per_iteration=us / 1e3 / n,
+                  calls_per_iteration=c / n) for k, us, c in rows[:top]])
+
+
+def tf32_guard(prob, lin, lam=1e-4):
+    """The dense solve's products run in full float32 whatever the global
+    TF32 setting: with ``allow_tf32`` turned on, the reduced system built
+    inside the solver's ``_exact_f32`` guard matches the one built with TF32
+    off (1e-6 relative: atomics add in another order), the flag reads off
+    inside the guard and on again after it.  The same system built outside
+    the guard is reported beside it."""
+    from mqslam_tpu_torch.ba import solver as bs
+    hpp = bs._hpp_damped(lin, lam)
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmul is on before the BA phase")
+    ref = bs._reduced_system(prob, lin, lam, hpp)[0]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with bs._exact_f32():
+            inside = torch.backends.cuda.matmul.allow_tf32
+            guarded = bs._reduced_system(prob, lin, lam, hpp)[0]
+        after = torch.backends.cuda.matmul.allow_tf32
+        unguarded = bs._reduced_system(prob, lin, lam, hpp)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    d_in, d_out = rel_diff(guarded, ref.cpu()), rel_diff(unguarded, ref.cpu())
+    require(not inside and after, "the solver's TF32 guard does not hold")
+    require(d_in <= 1e-6, f"S inside the TF32 guard differs by {d_in}")
+    return dict(allow_tf32=False, guarded_S_rel=d_in,
+                tf32_S_rel_unguarded=d_out)
+
+
+def phase_ba(device):
+    """Bundle adjustment on the in-repo ICL dump (200 poses, 798
+    landmarks, 42,220 observations): ``cli.ba_run.main`` mode 0 on a
+    temporary copy, held against the JAX package's checked-in output
+    (centres 1e-3 m, landmarks 1e-2 m for >= 97 %, final cost within 0.1 %
+    of the port's ``compute_cost`` at the checked-in result); ``lm_solve``
+    and ``lm_solve_device`` (a wrapper of the same loop) timed, and the
+    factor Jacobians; one linearization and dense solve on the card against the CPU
+    (``card_vs_cpu_step``), and ``lm_solve`` against ``lm_solve_device``
+    (centres 1e-3 m)."""
+    import shutil
+    from mqslam_tpu_torch.ba import polish64, problem as bp, solver as bs
+    from mqslam_tpu_torch.io import ba_info
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmul is on before the BA phase")
+    with tempfile.TemporaryDirectory() as d:
+        for f in os.listdir(ICL_DUMP):
+            if not f.endswith("-BA.txt") and not f.endswith("-BA.pcd"):
+                shutil.copy(os.path.join(ICL_DUMP, f), d)
+        _, hist, pol, cli_s = run_ba_cli([d, "mqslam", "1", "30"], device)
+        v_out, traj, pts = ba_variables_from_files(
+            os.path.join(d, "traj_out.cam0-mqslam-BA.txt"),
+            os.path.join(d, "map_out-mqslam-BA.pcd"), device)
+        data = ba_info.load_ba_data(d, "mqslam", nr_cameras=1, fps=30)
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the BA solve left TF32 matmul on")
+    v_ref, traj_ref, pts_ref = ba_variables_from_files(
+        os.path.join(ICL_DUMP, "traj_out.cam0-mqslam-BA.txt"),
+        os.path.join(ICL_DUMP, "map_out-mqslam-BA.pcd"), device)
+    prob = bp.problem_from_ba_data(data, device=device)
+    require(bs.dense_method_ok(prob), "the ICL dump is past the dense gates")
+    require(np.array_equal(traj.timestamps, traj_ref.timestamps),
+            "trajectory timestamps differ from the checked-in output")
+    d_c = np.linalg.norm(traj.locations - traj_ref.locations, axis=1)
+    d_p = np.linalg.norm(pts - pts_ref, axis=1)
+    near = float((d_p <= 1e-2).mean())
+    cost_out = float(bs.compute_cost(prob, v_out))
+    cost_ref = float(bs.compute_cost(prob, v_ref))
+    rel = abs(cost_out - cost_ref) / cost_ref
+    log(f"ba: ICL {prob.n_poses} poses, {int(prob.point_valid.sum())} "
+        f"landmarks, {int(prob.obs_valid.sum())} observations; LM "
+        f"{len(hist) - 1} iterations, cost {hist[0]:.3f} -> {hist[-1]:.3f}; "
+        f"centres {d_c.max():.2e} m from the checked-in output, landmarks "
+        f"within 1 cm {near:.4f}; cost {cost_out:.3f} vs {cost_ref:.3f}")
+    require(d_c.max() <= 1e-3, f"centres {d_c.max()} m from the checked-in "
+            "output")
+    require(near >= 0.97, f"only {near:.4f} of the landmarks within 1 cm")
+    require(rel <= 1e-3, f"final cost {cost_out} vs {cost_ref} at the "
+            "checked-in output")
+    require(hist[-1] <= hist[0], "LM raised the cost")
+
+    # the two entry points, timed (each after a warm-up solve); they run the
+    # same loop until the port has a device-side one
+    timed = host_seconds
+    bs.lm_solve(prob, max_iters=2)
+    s_host, (v_host, h_host) = timed(lambda: bs.lm_solve(prob))
+    bs.lm_solve_device(prob, max_iters=2)
+    s_dev, (v_dev, h_dev, n_dev) = timed(lambda: bs.lm_solve_device(prob))
+    n_host = len(h_host) - 1
+    d_loops = float((v_host.pose_t - v_dev.pose_t).norm(dim=1).max())
+    require(d_loops <= 1e-3, f"lm_solve vs lm_solve_device: centres "
+            f"{d_loops} m apart")
+
+    # ms per linearize, per dense solve and for the five Jacobians
+    lin = bs.linearize(prob, prob.init)
+    lin_ms = time_ms(lambda: bs.linearize(prob, prob.init), reps=10)
+    solve_ms = time_ms(lambda: bs.solve_delta_dense(prob, lin, 1e-4),
+                       reps=10)
+    jac_ms = time_ms(lambda: factor_jacobians(prob), reps=10)
+
+    log(f"ba: lm_solve {n_host} it in {s_host:.3f} s, lm_solve_device "
+        f"{n_dev} it in {s_dev:.3f} s; linearize {lin_ms:.3f} ms, dense "
+        f"solve {solve_ms:.3f} ms; Jacobians {jac_ms:.3f} ms")
+    tf32 = tf32_guard(prob, lin)
+    s_polish, (_, h_polish) = timed(lambda: polish64.polish64(
+        prob, v_host, max_iters=12))
+    profiled = ba_profile(prob)
+    log(f"ba: polish64 {s_polish:.2f} s on the host; a profiled LM "
+        f"iteration {profiled['wall_ms_per_iteration']:.2f} ms wall, "
+        f"{profiled['device_busy_ms_per_iteration']:.2f} ms device busy, "
+        f"idle {profiled['device_idle_share']:.3f}")
+
+    # card against the CPU: one linearization and dense solve
+    step = card_vs_cpu_step(prob, 1e-4)
+    rec = dict(
+        problem=dict(poses=prob.n_poses, landmarks=int(prob.point_valid.sum()),
+                     observations=int(prob.obs_valid.sum()),
+                     odometry=int(prob.odo_valid.sum()),
+                     obs_slots=int(prob.obs_valid.shape[0])),
+        cli_seconds=cli_s, lm_iterations=len(hist) - 1,
+        history_ends=[hist[0], hist[-1]], polish_history=pol,
+        centre_max_m=float(d_c.max()), landmarks_within_1cm=near,
+        landmarks_over_1cm=int((d_p > 1e-2).sum()),
+        cost_at_output=cost_out, cost_at_checked_in=cost_ref,
+        cost_rel_diff=rel,
+        lm_solve=dict(seconds=s_host, iterations=n_host,
+                      iterations_per_s=n_host / s_host,
+                      final_cost=h_host[-1]),
+        lm_solve_device=dict(seconds=s_dev, iterations=n_dev,
+                             iterations_per_s=n_dev / s_dev,
+                             final_cost=h_dev[-1]),
+        loops_centre_diff_m=d_loops,
+        polish64=dict(seconds=s_polish, history=[float(x) for x in h_polish]),
+        profile=profiled,
+        linearize_ms=lin_ms, solve_delta_dense_ms=solve_ms,
+        jacobians_ms=jac_ms,
+        card_vs_cpu=step,
+        tf32=tf32,
+        note="seconds: host clock around one solve closed by a synchronize, "
+             "after a warm-up solve; *_ms: 10 calls back to back between "
+             "one pair of CUDA events, median of 5 rounds")
+    return rec
+
+
+def tum_ground_truth(path, P_gt, fps=30.0):
+    """The synthetic sequence's known poses (world-to-cam) as a TUM file,
+    frame i at (i + 1) / fps as the front-end's trajectory stamps it."""
+    from mqslam_tpu_torch.io import tum
+    from mqslam_tpu_torch.io.nputil import matrix_to_quat_np
+    R_c2w = np.transpose(P_gt[:, :3, :3], (0, 2, 1))
+    centres = -np.einsum("nji,nj->ni", P_gt[:, :3, :3], P_gt[:, :3, 3])
+    ts = (np.arange(len(P_gt)) + 1) / fps
+    tum.save_trajectory(path, tum.CamTrajectory(
+        ts, centres, matrix_to_quat_np(R_c2w)))
+
+
+def phase_main_path_closed(single, res, device):
+    """``slam_run`` -> ``ba_run`` -> ``evaluate_ate`` / ``evaluate_rpe`` on
+    the card: the single-agent run's own dump (``run_frontend(collect_ba=
+    True)`` of the 1280x720 sequence, written through the port's writers),
+    bundle-adjusted by ``cli.ba_run.main``; both trajectories against the
+    synthetic ground truth through the two evaluation CLIs.  ATE RMSE
+    < 0.05 m for both, BA's final cost <= its first."""
+    from mqslam_tpu_torch.cli import evaluate_ate, evaluate_rpe
+    from mqslam_tpu_torch.eval import ate
+    from mqslam_tpu_torch.io import ba_info, pcd, tum
+
+    _, P_gt, *_ = single
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        ba_info.save_ba_data(d, "smoke", res.ba_data)
+        fe_traj = os.path.join(d, "traj_out.cam0-smoke.txt")
+        tum.save_trajectory(fe_traj, res.trajectory)
+        pcd.save_pcd(os.path.join(d, "map_out-smoke.pcd"), res.points3d)
+        gt = os.path.join(d, "groundtruth.txt")
+        tum_ground_truth(gt, P_gt)
+        _, hist, pol, out["ba_seconds"] = run_ba_cli([d, "smoke", "1", "30"],
+                                                 device)
+        require(hist[-1] <= hist[0], f"BA raised the cost: {hist[0]} -> "
+                f"{hist[-1]}")
+        ba_traj = os.path.join(d, "traj_out.cam0-smoke-BA.txt")
+        for key, est in (("front_end", fe_traj), ("ba", ba_traj)):
+            rc, text = quiet(evaluate_ate.main, [gt, est])
+            require(rc == 0, f"evaluate_ate returned {rc}")
+            rmse_cli = float(text.strip().splitlines()[-1])
+            res_ate = ate.evaluate_ate_files(est, gt)
+            rc, text = quiet(evaluate_rpe.main,
+                             [gt, est, "--fixed_delta", "--delta", "1",
+                              "--delta_unit", "f"])
+            require(rc == 0, f"evaluate_rpe returned {rc}")
+            rpe_cli = float(text.strip().splitlines()[-1])
+            require(abs(rmse_cli - res_ate.rmse) <= 1e-6,
+                    f"{key}: the CLI's ATE {rmse_cli} vs {res_ate.rmse}")
+            require(res_ate.rmse < 0.05, f"{key}: ATE RMSE {res_ate.rmse} m")
+            out[key] = dict(ate_rmse_m=res_ate.rmse, ate_max_m=res_ate.max,
+                            pairs=res_ate.n_pairs,
+                            rpe_trans_rmse_m_per_frame=rpe_cli)
+    out.update(frames=len(P_gt), poses=int(sum(
+        p is not None for p in res.ba_data.poses[0])),
+        landmarks=len(res.points3d), lm_iterations=len(hist) - 1,
+        history_ends=[hist[0], hist[-1]], polish_history=pol)
+    log(f"main_path_closed: ATE front-end {out['front_end']['ate_rmse_m']:.5f}"
+        f" m, BA {out['ba']['ate_rmse_m']:.5f} m; LM {len(hist) - 1} "
+        f"iterations, cost {hist[0]:.3f} -> {hist[-1]:.3f}")
+    return out
+
+
 def registers(nvcc_log):
     """({kernel entry: registers}, {kernel entry: spill bytes stored +
     loaded}) from ``nvcc -Xptxas -v`` output."""
@@ -1400,6 +1824,11 @@ def main():
         emit({"bench": phase_bench(pair, device)})
         log("phase cuda_vs_cpu")
         emit({"cuda_vs_cpu": phase_cuda_vs_cpu(device)})
+        log("phase ba (the ICL dump)")
+        emit({"ba": phase_ba(device)})
+        log("phase main_path_closed")
+        emit({"main_path_closed": phase_main_path_closed(single, res,
+                                                         device)})
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

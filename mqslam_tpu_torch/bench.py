@@ -18,14 +18,20 @@ the port has the modules for:
   host clock closed by a synchronize;
 * the LK call's bytes against the card's memory rate (``efficiency``);
 * two-view triangulation throughput, four methods, N = 65536;
+* BA: LM iterations/s of ``lm_solve_device`` and of ``lm_solve`` (the
+  dense-Schur path) on the synthetic 2-robot cube, odometry off (the JAX
+  bench's real SVO dump is not in the repo, and the JAX bench falls back to
+  the same cube without it); both keys time the same host-driven loop
+  until the port has a device-side one (``lm_solve_device`` wraps
+  ``lm_solve``);
 * ``vs_baseline``: OpenCV's per-frame ladder on the host's CPU where cv2
   imports, else 30 frames/s (real time).
 
-The JAX bench's BA, corridor-CG and loop-closure sections are left out of
-``extra`` (their modules are not ported yet: ``NOT_PORTED``); the log on
-stderr names each.  Every function takes ``device=`` (None: the CUDA
-device), so the tests run them on the CPU at tiny sizes; a time from a CPU
-run is not a device figure.
+The JAX bench's incremental-BA figure is ``null`` and its corridor-CG and
+loop-closure sections are left out of ``extra`` (their modules are not
+ported yet: ``NOT_PORTED``); the log on stderr names each.  Every function
+takes ``device=`` (None: the CUDA device), so the tests run them on the CPU
+at tiny sizes; a time from a CPU run is not a device figure.
 """
 
 import concurrent.futures
@@ -45,15 +51,15 @@ from mqslam_tpu_torch.ops import triangulation as tri
 
 __all__ = ["render_fleet", "bench_single", "bench_multi",
            "bench_multi_divergent", "lk_pair_inputs", "bench_lk_impls",
-           "lk_efficiency",
+           "lk_efficiency", "bench_ba_iters",
            "bench_triangulation", "bench_opencv_baseline", "summary",
            "main"]
 
 METRIC = "slam_frontend_aggregate_frames_per_s_per_chip"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 NOT_PORTED = (
-    ("bench_ba_iters", "ba_lm_iterations_per_s*, ba_incremental_steps_per_s",
-     "ROADMAP Queue 1 item 9 (BA main path)"),
+    ("ba_incremental", "ba_incremental_steps_per_s (null)",
+     "ROADMAP Queue 1 item 11 (BA at scale: incremental_solve_device)"),
     ("bench_corridor_cg", "corridor_cg, efficiency.cg_*",
      "ROADMAP Queue 1 item 11 (BA at scale)"),
     ("bench_loopclosure", "loop_closure", "ROADMAP Queue 1 item 13 (loop "
@@ -69,14 +75,17 @@ def _log(msg):
           file=sys.stderr, flush=True)
 
 
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _timed(fn, device):
     """Host seconds of ``fn()``, closed by a synchronize on the card."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     t0 = time.perf_counter()
     fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     return time.perf_counter() - t0
 
 
@@ -294,6 +303,43 @@ def bench_triangulation(n_scan=20, repeats=3, N=65536, device=None):
     return out
 
 
+def bench_ba_iters(max_iters=15, repeats=2, nr_cameras=2, nr_frames=20,
+                   device=None):
+    """LM iterations/s on the synthetic cube (``nr_cameras`` robots,
+    ``nr_frames`` steps, odometry off), the JAX bench's ``bench_ba_iters``
+    without its real dump: the device loop's entry point
+    (``lm_solve_device``, the headline; in the port a wrapper of the host
+    loop, so the two keys time the same loop) and the host loop
+    (``lm_solve``), each after one warm-up solve, best of ``repeats``, host
+    clock closed by a synchronize.
+    Returns {ba_lm_iterations_per_s, ba_lm_iterations_per_s_host_loop,
+    ba_incremental_steps_per_s (None: not ported), ba_workload}."""
+    from mqslam_tpu_torch.ba import problem as bp, solver as bs
+    from mqslam_tpu_torch.ba import synthetic as bsyn
+    device = resolve_device(device)
+    data = bsyn.generate_cube_scenario(nr_cameras=nr_cameras,
+                                       nr_frames=nr_frames)
+    prob = bp.problem_from_ba_data(data, device=device)
+    prob = prob._replace(odo_valid=torch.zeros_like(prob.odo_valid))
+    n = {}
+
+    def host():
+        n["host"] = len(bs.lm_solve(prob, max_iters=max_iters)[1]) - 1
+
+    def dev():
+        n["dev"] = bs.lm_solve_device(prob, max_iters=max_iters)[2]
+
+    bs.lm_solve(prob, max_iters=2)
+    best_host = _best(host, device, repeats)
+    bs.lm_solve_device(prob, max_iters=2)
+    best_dev = _best(dev, device, repeats)
+    _log(f"BA: {n['dev']} / {n['host']} LM iterations (device / host loop)")
+    return {"ba_lm_iterations_per_s": max(n["dev"], 1) / best_dev,
+            "ba_lm_iterations_per_s_host_loop": n["host"] / best_host,
+            "ba_incremental_steps_per_s": None,
+            "ba_workload": f"synthetic-cube-{nr_cameras}cam"}
+
+
 def bench_opencv_baseline(imgs, P_list, f, size, plane_z, passes=2):
     """The per-frame kernel ladder of the system the JAX package was
     modelled on, through OpenCV on the host's CPU (calcOpticalFlowPyrLK,
@@ -347,9 +393,10 @@ def _opencv_ladder_once(imgs, P_list, f, size, plane_z):
     return n / (time.perf_counter() - t0)
 
 
-def summary(scaling, cloned, fps1, lk_ms, tri_mps, eff, base, device_info):
+def summary(scaling, cloned, fps1, lk_ms, tri_mps, eff, base, device_info,
+            ba):
     """The JSON line: the headline is the best point of the divergent
-    sweep."""
+    sweep; ``ba`` is ``bench_ba_iters``'s dict."""
     best_A = max(scaling, key=lambda k: scaling[k])
     headline = scaling[best_A]
     return {
@@ -362,6 +409,7 @@ def summary(scaling, cloned, fps1, lk_ms, tri_mps, eff, base, device_info):
             "agents_scaling_fps": {str(k): v for k, v in scaling.items()},
             "cloned_agents_fps": {str(k): v for k, v in cloned.items()},
             "single_agent_vs_cv2": fps1 / base,
+            **ba,
             "lk_per_call_ms": lk_ms,
             "triangulation_mpts_per_s": tri_mps,
             "efficiency": eff,
@@ -427,6 +475,8 @@ def main():
     _log(f"triangulation Mpoints/s: {tri_mps}")
     eff = lk_efficiency(lk_ms)
     _log(f"LK against the memory bound: {eff}")
+    ba = bench_ba_iters(device=device)
+    _log(f"BA: {ba}")
 
     base = bench_opencv_baseline(imgs, P_list, f, size, plane_z)
     if base is None:
@@ -435,7 +485,7 @@ def main():
     else:
         _log(f"baseline: cv2 ladder {base:.2f} frames/s on the host's CPU")
     print(json.dumps(summary(scaling, cloned, fps1, lk_ms, tri_mps, eff,
-                             base, _device_info(device))), flush=True)
+                             base, _device_info(device), ba)), flush=True)
     return 0
 
 

@@ -1,7 +1,8 @@
 """State carried across from the JAX package, as NumPy arrays.
 
 The port never sees a JAX object: a caller turns the JAX ``TrackerState`` /
-calibration into NumPy (``np.asarray`` per field) and hands the dict here.
+calibration / ``BAProblem`` / ``BAVariables`` into NumPy (``np.asarray`` per
+field) and hands the dict here.
 ``flatten_ba_data`` goes the other way for comparisons: it reads attributes
 only, so it takes this package's ``io.ba_info.BAData`` and any object of the
 same shape.
@@ -13,12 +14,15 @@ import numpy as np
 import torch
 
 from mqslam_tpu_torch import resolve_device
+from mqslam_tpu_torch.ba.problem import BAProblem, BAVariables
 from mqslam_tpu_torch.core import camera
 from mqslam_tpu_torch.core.camera import Cal3DS2
 from mqslam_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
 
 __all__ = ["cal_from_numpy", "cal_from_K_dist", "config_from_jax",
-           "state_from_numpy", "state_to_numpy", "flatten_ba_data"]
+           "state_from_numpy", "state_to_numpy", "flatten_ba_data",
+           "problem_from_numpy", "variables_from_numpy",
+           "variables_to_numpy"]
 
 _DTYPES = {
     "base_uv": torch.float32, "cur_uv": torch.float32,
@@ -71,6 +75,43 @@ def state_from_numpy(fields, device=None):
 def state_to_numpy(state: TrackerState):
     """{field: ndarray} of a TrackerState (host copy)."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def _ba_tensor(a, device):
+    a = np.array(a)                 # a writable copy of a read-only view
+    if a.dtype.kind == "f":
+        return torch.as_tensor(a, dtype=torch.float32).to(device)
+    if a.dtype.kind in "iu":
+        return torch.as_tensor(a.astype(np.int32)).to(device)
+    return torch.as_tensor(a).to(device)
+
+
+def variables_from_numpy(fields, device=None):
+    """BAVariables from {pose_r, pose_t, points: ndarray} (float32 on the
+    device)."""
+    device = resolve_device(device)
+    return BAVariables(**{k: _ba_tensor(fields[k], device)
+                          for k in BAVariables._fields})
+
+
+def variables_to_numpy(v: BAVariables):
+    """{field: ndarray} of BAVariables (host copy)."""
+    return {k: x.detach().cpu().numpy() for k, x in v._asdict().items()}
+
+
+def problem_from_numpy(fields, device=None):
+    """BAProblem from {field: ndarray}, with ``init`` itself a {field:
+    ndarray} dict of the initial variables: the JAX package's problem, field
+    by field (floats float32, indices int32, masks bool), so both packages
+    solve the identical problem.  Every field is expected."""
+    device = resolve_device(device)
+    missing = [k for k in BAProblem._fields if k not in fields]
+    if missing:
+        raise KeyError(f"problem fields missing: {missing}")
+    return BAProblem(
+        init=variables_from_numpy(fields["init"], device),
+        **{k: _ba_tensor(fields[k], device) for k in BAProblem._fields
+           if k != "init"})
 
 
 def flatten_ba_data(data):

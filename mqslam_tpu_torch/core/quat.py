@@ -1,21 +1,27 @@
 """Quaternion algebra, batched over leading dims.
 
 Convention: quaternions are stored as ``(x, y, z, w)`` — the TUM trajectory
-convention — in tensors of shape ``[..., 4]``.  Only what ``so3`` / ``se3``
-need is here (the remaining helpers of the JAX package's module follow with
-the modules that use them).
+convention — in tensors of shape ``[..., 4]``.  Unit rotation quaternions
+act on points by conjugation q * p * q^-1.  Only what ``so3`` / ``se3`` and
+``eval.alignment`` need is here (the remaining helpers of the JAX package's
+module follow with the modules that use them).
 """
 
 import torch
 
-__all__ = ["identity", "normalize", "to_rvec", "from_matrix"]
+__all__ = ["identity", "normalize", "mult", "conj", "inv", "apply_to_point",
+           "to_rvec", "from_matrix"]
 
 _EPS = 1e-12
 
 
 def identity(dtype=torch.float32, device=None):
-    """The identity rotation quaternion (0, 0, 0, 1)."""
-    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+    """The identity rotation quaternion (0, 0, 0, 1), made on ``device``
+    (no host-to-device copy: on a CUDA device that copy waits for the
+    stream)."""
+    q = torch.zeros(4, dtype=dtype, device=device)
+    q[3] = 1.0
+    return q
 
 
 def normalize(q):
@@ -23,6 +29,46 @@ def normalize(q):
     n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return torch.where(n > _EPS, q / torch.clamp(n, min=_EPS),
                        identity(q.dtype, q.device))
+
+
+def mult(q1, q2):
+    """Hamilton product q1 * q2 (apply q2's rotation first, then q1's)."""
+    x1, y1, z1, w1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    x2, y2, z2, w2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack([
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+    ], dim=-1)
+
+
+def conj(q):
+    """Conjugate (negate the vector part)."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
+def inv(q):
+    """Inverse q^-1 = conj(q) / |q|^2."""
+    n2 = torch.sum(q * q, dim=-1, keepdim=True)
+    return conj(q) / torch.clamp(n2, min=_EPS)
+
+
+def _cross(a, b):
+    """a x b over the last axis, term by term as ``jnp.cross`` writes it."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def apply_to_point(q, p):
+    """Rotate point(s) p [..., 3] by unit quaternion(s) q [..., 4] (the
+    expanded conjugation formula, no intermediate quaternion)."""
+    v = q[..., :3]
+    w = q[..., 3:4]
+    t = 2.0 * _cross(v, p)
+    return p + w * t + _cross(v, t)
 
 
 def to_rvec(q):

@@ -77,6 +77,20 @@ def test_triangulation(setup):
         assert "cv2_linear_eigen_mps" not in out
 
 
+def test_ba_iters():
+    """The BA section on the cube (one robot, 6 frames, 3 iterations): the
+    JAX bench's keys, the incremental figure null (not ported)."""
+    out = bench.bench_ba_iters(max_iters=3, repeats=1, nr_cameras=1,
+                               nr_frames=6, device="cpu")
+    assert set(out) == {"ba_lm_iterations_per_s",
+                        "ba_lm_iterations_per_s_host_loop",
+                        "ba_incremental_steps_per_s", "ba_workload"}
+    assert positive(out["ba_lm_iterations_per_s"])
+    assert positive(out["ba_lm_iterations_per_s_host_loop"])
+    assert out["ba_incremental_steps_per_s"] is None
+    assert out["ba_workload"] == "synthetic-cube-1cam"
+
+
 def test_json_line(setup):
     (imgs, P_list, f, size, plane_z), *_ = setup
     base = bench.bench_opencv_baseline(imgs, P_list, f, size, plane_z,
@@ -86,7 +100,11 @@ def test_json_line(setup):
         {1: 4.0, 2: 7.5, 4: 6.0}, {8: 9.0}, 4.0,
         {"xla": 1.0, "pallas": 2.0, "fused": 0.5, "tiled": 0.4},
         {"linear_ls_mps": 3.0}, {"lk_x_over_hbm_sol": 5.0}, 30.0,
-        {"kind": "a card"}))
+        {"kind": "a card"},
+        {"ba_lm_iterations_per_s": 20.0,
+         "ba_lm_iterations_per_s_host_loop": 15.0,
+         "ba_incremental_steps_per_s": None,
+         "ba_workload": "synthetic-cube-2cam"}))
     out = json.loads(line)
     assert out["metric"] == "slam_frontend_aggregate_frames_per_s_per_chip"
     assert out["unit"] == "frames/s"
@@ -96,12 +114,17 @@ def test_json_line(setup):
     assert extra["agents_scaling_fps"] == {"1": 4.0, "2": 7.5, "4": 6.0}
     assert set(extra["lk_per_call_ms"]) == {"xla", "pallas", "fused",
                                             "tiled"}
-    # the sections that are not ported have no key, and no placeholder
-    for key in ("ba_lm_iterations_per_s", "ba_incremental_steps_per_s",
-                "corridor_cg", "loop_closure", "ba_workload"):
+    # the BA section's keys as the JAX bench names them; the incremental
+    # figure is null, and the sections that are not ported have no key
+    assert extra["ba_lm_iterations_per_s"] == 20.0
+    assert extra["ba_lm_iterations_per_s_host_loop"] == 15.0
+    assert extra["ba_incremental_steps_per_s"] is None
+    assert extra["ba_workload"] == "synthetic-cube-2cam"
+    for key in ("corridor_cg", "loop_closure"):
         assert key not in extra
     assert [n for n, _, _ in bench.NOT_PORTED] == [
-        "bench_ba_iters", "bench_corridor_cg", "bench_loopclosure"]
+        "ba_incremental", "bench_corridor_cg", "bench_loopclosure"]
+    assert "item 11" in bench.NOT_PORTED[0][2]
 
 
 def test_main_needs_a_card(monkeypatch):

@@ -38,7 +38,11 @@ def test_slice_modules_present():
               "csrc", "ops.lk_fused", "frontend.runner", "cli",
               "cli.slam_run", "io", "io.tum", "io.pcd", "io.ba_info",
               "io.intrinsics", "io.images", "io.nputil", "ops.extract",
-              "ops.lk_iterate", "bench"):
+              "ops.lk_iterate", "bench", "ba", "ba.factors", "ba.problem",
+              "ba.solver", "ba.polish64", "ba.validate", "ba.synthetic",
+              "cli.ba_run", "eval", "eval.associate", "eval.ate",
+              "eval.rpe", "eval.alignment", "cli.evaluate_ate",
+              "cli.evaluate_rpe", "cli.align_traj"):
         assert "mqslam_tpu_torch." + m in mods, m
     for f in ("lk_level.cu", "lk_strip.cu", "lk_track.cuh", "extract.cu",
               "lk_iterate.cu"):
