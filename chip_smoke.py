@@ -53,7 +53,13 @@ dump, and nothing else; imports only ``mqslam_tpu_torch``.  It
      and the factor Jacobians; checks that the solve runs in full float32 with TF32 on
      globally; and holds one linearization and dense solve against the
      CPU's,
-  9. closes the main path: the single-agent run's own dump through
+  9. bundle-adjusts at scale (``ba_scale``): the corridor problem at the
+     JAX bench's production size (2048 poses, 49,152 landmarks, ~370k
+     observations) through the CG path over each layout, held against COO
+     and solved by ``lm_solve``; card against CPU at the test size; the
+     incremental modes 1 and 2 of ``ba_run`` over the ICL dump; the bench's
+     corridor-CG section,
+ 10. closes the main path: the single-agent run's own dump through
      ``ba_run``, then ``evaluate_ate`` / ``evaluate_rpe`` on the front-end
      and the bundle-adjusted trajectories against the ground truth.
 
@@ -1317,23 +1323,26 @@ ICL_DUMP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "artifacts", "icl_r5b")
 
 
-def capture_results(module, name, run):
-    """``run()``'s result, and the results ``module.<name>`` returned while
-    it ran (the calls still run)."""
-    results = []
+def timed_calls(module, name, run):
+    """``run()``'s result, and (host seconds closed by a synchronize,
+    result) of each call ``module.<name>`` made while it ran."""
+    calls = []
     real = getattr(module, name)
 
-    def recorder(*args, **kw):
+    def timer(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         out = real(*args, **kw)
-        results.append(out)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, out))
         return out
 
-    setattr(module, name, recorder)
+    setattr(module, name, timer)
     try:
         out = run()
     finally:
         setattr(module, name, real)
-    return out, results
+    return out, calls
 
 
 def run_ba_cli(argv, device):
@@ -1342,14 +1351,14 @@ def run_ba_cli(argv, device):
     from mqslam_tpu_torch.ba import polish64, solver as bs
     from mqslam_tpu_torch.cli import ba_run
     t0 = time.perf_counter()
-    ((rc, lm), pol), _ = quiet(lambda: capture_results(
-        polish64, "polish64", lambda: capture_results(
+    ((rc, lm), pol), _ = quiet(lambda: timed_calls(
+        polish64, "polish64", lambda: timed_calls(
             bs, "lm_solve",
             lambda: ba_run.main(argv + ["--device", str(device)]))))
     seconds = time.perf_counter() - t0
     require(rc == 0 and len(lm) == 1 and len(pol) == 1,
             f"ba_run.main returned {rc}")
-    return rc, lm[0][1], [float(x) for x in pol[0][1]], seconds
+    return rc, lm[0][1][1], [float(x) for x in pol[0][1][1]], seconds
 
 
 def quiet(fn, *args):
@@ -1655,6 +1664,314 @@ def phase_ba(device):
     return rec
 
 
+# BA at scale: the JAX bench's production corridor, and the budgets of the
+# JAX package's corridor test (tests/test_ba.py::test_cg_recovers_geometry)
+CORRIDOR = dict(nr_frames=2048, points_per_frame=24)
+LM_SCALE = dict(max_iters=20, cg_iters=300)
+# card vs CPU at the test size: 8 LM iterations, the JAX package's own
+# budget between its two loops (test_device_loop_cg_matches); lam0 = 1e-4
+# because below it the first damped system is indefinite and truncated CG
+# returns a meaningless step whose acceptance is roundoff
+LM_SMALL = dict(max_iters=8, cg_iters=200, lam0=1e-4, method="cg")
+# The JAX package's own results on the CPU (ref_ba_scale_jax.py): its
+# lm_solve at LM_SCALE on the corridor leaves a mean camera-centre error of
+# 0.030448 m (from 0.079536: a 2.61x cut, not test_ba.py's 3x, which holds
+# at its F = 64 and is held here at that size: along the 2048-pose chain the
+# optimum lies in a flat valley, where 20 more LM iterations at 1000 CG
+# iterations lower the JAX package's cost by 0.07 % and move its error to
+# 0.171 m); its incremental_solve's centres lie up to 3.8548e-3 m from its
+# checked-in mode-0 ICL output.  The port is held to 1.5x the first and
+# twice the second.
+JAX_CORRIDOR_POSE_ERR_M = 0.030448
+JAX_INCREMENTAL_CENTRE_MAX_M = 3.8548e-3
+
+
+def norm_rel(a, b):
+    """||a - b|| / ||b|| in float64 (``tests/test_banded.py``'s measure)."""
+    a, b = a.double(), b.to(a.device).double()
+    return float(torch.linalg.norm(a - b)
+                 / torch.linalg.norm(b).clamp(min=1e-30))
+
+
+def hold_layouts(prob, layouts, lam=1e-3):
+    """One linearization of ``prob``: each layout's applies against COO's
+    (W^T, W, Hcc-obs within 1e-5; W M W^T and the preconditioner blocks
+    within 1e-4, ``tests/test_banded.py``'s bounds), then ``solve_delta``
+    at 80 CG iterations run in full, pairwise across the three layouts
+    within 5e-3 (``test_banded.py``'s bound for the same solve)."""
+    from mqslam_tpu_torch.ba import solver as bs
+    lin = bs.linearize(prob, prob.init)
+    hpp_solve, Hpp_inv = bs._hpp_damped(lin, lam)
+    gen = torch.Generator(device=prob.device).manual_seed(0)
+    v = torch.randn((prob.n_poses, 6), generator=gen, device=prob.device)
+    t = torch.randn((prob.n_points, 3), generator=gen, device=prob.device)
+    bounds = dict(wt_full=1e-5, w_full=1e-5, hcc=1e-5, corr=1e-4, pre=1e-4)
+    out, steps = {}, {}
+    with bs._exact_f32():
+        coo = bs._layout_hooks(prob, lin, None, None, hpp_solve, Hpp_inv)
+        calls = dict(wt_full=lambda h: h.wt_full(v),
+                     w_full=lambda h: h.w_full(t), hcc=lambda h: h.hcc(v),
+                     corr=lambda h: h.corr(v), pre=lambda h: h.pre())
+        ref = {k: f(coo) for k, f in calls.items()}
+        for name, lay in layouts.items():
+            hooks = bs._layout_hooks(prob, lin, lay,
+                                     bs.pack_for_layout(lin, lay),
+                                     hpp_solve, Hpp_inv)
+            out[name] = {k: norm_rel(f(hooks), ref[k])
+                         for k, f in calls.items()}
+            bad = {k: e for k, e in out[name].items() if e > bounds[k]}
+            require(not bad, f"ba_scale: {name} applies vs COO {bad}")
+    for name, lay in dict(layouts, coo=None).items():
+        dc, dp, it = bs.solve_delta(prob, lin, lam, cg_iters=80, cg_tol=0.0,
+                                    layout=lay)
+        require(int(it) == 80, f"ba_scale: {name} ran {int(it)} of 80")
+        steps[name] = (dc, dp)
+    pairs = {}
+    for a in steps:
+        for b in steps:
+            if a < b:
+                pairs[f"{a}_vs_{b}"] = max(norm_rel(steps[a][0], steps[b][0]),
+                                           norm_rel(steps[a][1], steps[b][1]))
+    require(max(pairs.values()) <= 5e-3,
+            f"ba_scale: solve_delta pairwise {pairs}")
+    return dict(applies_vs_coo=out, solve_delta_80_pairwise=pairs)
+
+
+def cg_profile(prob, layout, budgets=(25, 100)):
+    """One CG iteration of ``solve_delta`` over ``layout`` from the slope
+    between two budgets run in full: host wall ms (a synchronize closing
+    each solve, best of 3), and under ``torch.profiler`` the device's busy
+    ms and operations, and the idle share of the wall time."""
+    from mqslam_tpu_torch.ba import solver as bs
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lin = bs.linearize(prob, prob.init)
+    pj = bs.pack_for_layout(lin, layout) if layout is not None else None
+    wall, busy, ops = {}, {}, {}
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    for n in budgets:
+        run = lambda: bs.solve_delta(prob, lin, 1e-3, cg_iters=n,
+                                     cg_tol=0.0, layout=layout, packedJ=pj)
+        run()
+        wall[n] = min(host_seconds(run)[0] for _ in range(3)) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = [(dev_us(e), e.count) for e in prof.key_averages()
+                if dev_us(e) > 0 and e.device_type == DeviceType.CUDA]
+        busy[n] = sum(r[0] for r in rows) / 1e3
+        ops[n] = sum(r[1] for r in rows)
+    a, b = budgets
+    per = lambda d: (d[b] - d[a]) / (b - a)
+    require(per(busy) > 0, "the profiler saw no device time in CG")
+    return dict(wall_ms_per_cg_iteration=per(wall),
+                device_busy_ms_per_cg_iteration=per(busy),
+                device_ops_per_cg_iteration=per(ops),
+                device_idle_share=1.0 - per(busy) / per(wall))
+
+
+def run_incremental_cli(mode, device):
+    """``cli.ba_run.main`` in ``mode`` (1 or 2) over a temporary copy of the
+    ICL dump: (cost history, seconds of the incremental solve, camera
+    centres of the written trajectory, their timestamps)."""
+    import shutil
+    from mqslam_tpu_torch.ba import incremental as binc
+    from mqslam_tpu_torch.cli import ba_run
+    from mqslam_tpu_torch.io import tum
+    argv = ["mqslam", "1", "30", "1", "1", "0", "1", str(mode)]
+    with tempfile.TemporaryDirectory() as d:
+        for f in os.listdir(ICL_DUMP):
+            if not f.endswith("-BA.txt") and not f.endswith("-BA.pcd"):
+                shutil.copy(os.path.join(ICL_DUMP, f), d)
+        (rc, calls), _ = quiet(lambda: timed_calls(
+            binc, "incremental_solve",
+            lambda: ba_run.main([d] + argv + ["--device", str(device)])))
+        require(rc == 0 and len(calls) == 1,
+                f"ba_run mode {mode} returned {rc}")
+        traj = tum.load_trajectory(
+            os.path.join(d, "traj_out.cam0-mqslam-BA.txt"))
+    seconds, (_, hist) = calls[0]
+    return hist, seconds, traj.locations, traj.timestamps
+
+
+def phase_ba_scale(device):
+    """BA at scale on the card.  (1) The corridor at the JAX bench's
+    production size (F = 2048, 24 landmarks a frame): ``_auto_layout``'s
+    choice, each layout's applies against COO and ``solve_delta`` across
+    the layouts (``hold_layouts``), one CG iteration profiled.  (2)
+    ``lm_solve(method="cg", layout="auto")`` on it (``LM_SCALE``): final
+    cost below 2x the cost at the truth, mean pose error at most 1.5x the
+    JAX package's on the same problem (``JAX_CORRIDOR_POSE_ERR_M``).  (3)
+    Card against CPU at the test size (F = 64, 8 landmarks a frame), each
+    layout (``LM_SMALL``): histories within 1e-2 relative, final centres
+    within 5e-3 m, and on the card ``tests/test_ba.py::
+    test_cg_recovers_geometry``'s criteria: final cost below 2x the cost at
+    the truth, mean pose error cut at least 3x.  (4) ``ba_run`` modes 1 and 2 (the incremental solve) over the
+    whole ICL dump: finite histories, the final cost below the whole
+    graph's cost at the front-end's values, centres within twice the JAX
+    package's own distance to its checked-in mode-0 output; card against
+    CPU over a 30-step prefix, the two copies in lockstep
+    (``incremental_lockstep``: the card follows the CPU's accept
+    decisions, since near a step's minimum a decision turns on the float32
+    cost's last bits and two free runs part ways): per-step costs within
+    1e-3 relative, camera centres within 1e-5 m.  (5) The bench's
+    corridor-CG section once."""
+    from mqslam_tpu_torch import bench
+    from mqslam_tpu_torch.ba import banded, incremental as binc, packed
+    from mqslam_tpu_torch.ba import problem as bp, solver as bs
+    from mqslam_tpu_torch.ba import synthetic as bsyn
+    from mqslam_tpu_torch.io import ba_info, tum
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmul is on before the BA-at-scale phase")
+    rec = {}
+    t0 = time.perf_counter()
+    prob, v_true = bsyn.generate_corridor_problem(**CORRIDOR, device=device)
+    args = (prob.obs_pose, prob.obs_point, prob.obs_valid, prob.n_poses,
+            prob.n_points)
+    t1 = time.perf_counter()
+    auto = bs._auto_layout(prob)
+    t2 = time.perf_counter()
+    layouts = {"banded": banded.build_banded_layout(*args),
+               "packed": packed.build_packed_layout(*args)}
+    require(all(v is not None for v in layouts.values()),
+            f"ba_scale: a layout refused the corridor: {layouts.keys()}")
+    bl, pl = layouts["banded"], layouts["packed"]
+    rec["corridor"] = dict(
+        F=prob.n_poses, P=prob.n_points, O=int(prob.obs_valid.sum()),
+        obs_slots=int(prob.obs_valid.shape[0]), generate_seconds=t1 - t0,
+        auto_layout_seconds=t2 - t1, auto_layout=type(auto).__name__,
+        banded=dict(J=bl.J, Ks=bl.Ks, L=bl.L, n_banded=bl.n_banded,
+                    n_left=bl.n_left),
+        packed=dict(Kf=pl.Kf, Kp=pl.Kp, chunked_fid=pl.wg_fid is not None,
+                    chunked_pid=pl.wg_pid is not None))
+    require(isinstance(auto, banded.BandedLayout),
+            f"ba_scale: _auto_layout chose {type(auto).__name__}")
+    log(f"ba_scale: corridor {rec['corridor']}")
+    rec["layouts"] = hold_layouts(prob, layouts)
+    rec["cg_profile_banded"] = cg_profile(prob, bl)
+    log(f"ba_scale: layouts {rec['layouts']}; one banded CG iteration "
+        f"{rec['cg_profile_banded']}")
+
+    # (2) the whole LM on the corridor
+    c_true = float(bs.compute_cost(prob, v_true))
+    seconds, ((v, hist), solves) = host_seconds(lambda: timed_calls(
+        bs, "solve_delta", lambda: bs.lm_solve(prob, method="cg",
+                                               layout="auto", **LM_SCALE)))
+    s_cg = sum(s for s, _ in solves)
+    cg_its = sum(int(out[2]) for _, out in solves)
+    err = (v.pose_t - v_true.pose_t).norm(dim=1).mean().item()
+    err0 = (prob.init.pose_t - v_true.pose_t).norm(dim=1).mean().item()
+    n_it = len(hist) - 1
+    rec["lm_solve"] = dict(
+        **LM_SCALE, iterations=n_it, attempts=len(solves),
+        cg_iterations=cg_its, history_ends=[hist[0], hist[-1]],
+        cost_at_truth=c_true, pose_err_mean_m=err, pose_err0_mean_m=err0,
+        seconds=seconds, lm_iterations_per_s=n_it / seconds,
+        solve_delta_seconds=s_cg, cg_iterations_per_s=cg_its / s_cg)
+    log(f"ba_scale: lm_solve {rec['lm_solve']}")
+    require(hist[-1] < 2.0 * c_true,
+            f"ba_scale: final cost {hist[-1]} vs {c_true} at the truth")
+    require(err <= 1.5 * JAX_CORRIDOR_POSE_ERR_M,
+            f"ba_scale: pose error {err} m (JAX {JAX_CORRIDOR_POSE_ERR_M})")
+    del prob, v_true, layouts, auto, bl, pl, v
+    torch.cuda.empty_cache()
+
+    # (3) card against CPU at the test size, each layout
+    small = {}
+    card, truth = bsyn.generate_corridor_problem(64, 8, device=device)
+    cpu = bp.problem_to(card, "cpu")
+    c_true = float(bs.compute_cost(card, truth))
+    err0 = (card.init.pose_t - truth.pose_t).norm(dim=1).mean().item()
+    for name in ("banded", "packed", "coo"):
+        runs = []
+        for p in (card, cpu):
+            lay = {"banded": banded.build_banded_layout,
+                   "packed": packed.build_packed_layout,
+                   "coo": lambda *a: None}[name](
+                p.obs_pose, p.obs_point, p.obs_valid, p.n_poses, p.n_points)
+            require(name == "coo" or lay is not None,
+                    f"ba_scale: {name} refused the small corridor")
+            runs.append(bs.lm_solve(p, layout=lay, **LM_SMALL))
+        (vg, hg), (vc, hc) = runs
+        m = min(len(hg), len(hc))
+        d_hist = float(np.max(np.abs(np.array(hg[:m]) / np.array(hc[:m])
+                                     - 1)))
+        d_pose = float((vg.pose_t.cpu() - vc.pose_t).abs().max())
+        err = (vg.pose_t - truth.pose_t).norm(dim=1).mean().item()
+        small[name] = dict(iterations=[len(hg) - 1, len(hc) - 1],
+                           history_rel_max=d_hist, pose_t_max_m=d_pose,
+                           final_costs=[hg[-1], hc[-1]], cost_at_truth=c_true,
+                           pose_err_cut=err0 / err)
+        require(len(hg) == len(hc) and d_hist <= 1e-2 and d_pose <= 5e-3,
+                f"ba_scale: card vs CPU, {name}: {small[name]}")
+        require(hg[-1] < 2.0 * c_true and err < err0 / 3.0,
+                f"ba_scale: geometry at F = 64, {name}: {small[name]}")
+    rec["card_vs_cpu_small"] = dict(LM_SMALL, **small)
+    log(f"ba_scale: card vs CPU {small}")
+
+    # (4) the incremental modes on the ICL dump
+    data = ba_info.load_ba_data(ICL_DUMP, "mqslam", nr_cameras=1, fps=30)
+    icl = bp.problem_from_ba_data(data, device=device)
+    cost_init = float(bs.compute_cost(icl, icl.init))
+    ref = tum.load_trajectory(os.path.join(ICL_DUMP,
+                                           "traj_out.cam0-mqslam-BA.txt"))
+    inc = {}
+    centres = {}
+    for mode in (1, 2):
+        hist, seconds, locs, stamps = run_incremental_cli(mode, device)
+        require(np.array_equal(stamps, ref.timestamps),
+                f"mode {mode}: timestamps differ from the checked-in output")
+        d_c = np.linalg.norm(locs - ref.locations, axis=1)
+        centres[mode] = locs
+        inc[f"mode{mode}"] = dict(
+            steps=len(hist), seconds=seconds,
+            steps_per_s=len(hist) / seconds, history_ends=[hist[0], hist[-1]],
+            cost_at_front_end=cost_init, centre_max_m=float(d_c.max()),
+            centre_mean_m=float(d_c.mean()))
+        log(f"ba_scale: ba_run mode {mode} {inc[f'mode{mode}']}")
+        require(len(hist) == data.nr_steps and np.isfinite(hist).all(),
+                f"mode {mode}: history {len(hist)} steps, finite "
+                f"{np.isfinite(hist).all()}")
+        require(hist[-1] <= cost_init,
+                f"mode {mode}: final cost {hist[-1]} above {cost_init}")
+        require(d_c.max() <= 2 * JAX_INCREMENTAL_CENTRE_MAX_M,
+                f"mode {mode}: centres {d_c.max()} m from the checked-in "
+                f"output (JAX's own {JAX_INCREMENTAL_CENTRE_MAX_M})")
+    inc["modes_centre_diff_m"] = float(np.abs(centres[1]
+                                              - centres[2]).max())
+    inc["jax_centre_max_m"] = JAX_INCREMENTAL_CENTRE_MAX_M
+    t0 = time.perf_counter()
+    (vc, vg), (hc, hg) = binc.incremental_lockstep(
+        data, [bp.problem_to(icl, "cpu"), icl], max_steps=30)
+    seconds = time.perf_counter() - t0
+    d_hist = float(np.max(np.abs(np.array(hg) / np.array(hc) - 1)))
+    d_pose = float((vg.pose_t.cpu() - vc.pose_t).norm(dim=1).max())
+    inc["card_vs_cpu_30_steps"] = dict(lockstep=True,
+                                       history_rel_max=d_hist,
+                                       centre_max_m=d_pose, seconds=seconds)
+    log(f"ba_scale: incremental card vs CPU, 30 steps in lockstep: "
+        f"{inc['card_vs_cpu_30_steps']}")
+    require(len(hg) == len(hc) == 30 and d_hist <= 1e-3 and d_pose <= 1e-5,
+            f"ba_scale: incremental card vs CPU {inc['card_vs_cpu_30_steps']}")
+    rec["incremental"] = inc
+
+    # (5) the bench's corridor-CG section
+    corridor = bench.bench_corridor_cg(device=device)
+    eff = bench.cg_efficiency(corridor)
+    require(all(np.isfinite(corridor[f"{k}_cg_iter_ms"])
+                and corridor[f"{k}_cg_iter_ms"] > 0
+                for k in ("banded", "packed", "coo")),
+            f"ba_scale: bench corridor {corridor}")
+    rec["bench_corridor_cg"] = dict(corridor=corridor, efficiency=eff)
+    log(f"ba_scale: bench corridor {corridor}; {eff}")
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the BA-at-scale phase left TF32 matmul on")
+    return rec
+
+
 def tum_ground_truth(path, P_gt, fps=30.0):
     """The synthetic sequence's known poses (world-to-cam) as a TUM file,
     frame i at (i + 1) / fps as the front-end's trajectory stamps it."""
@@ -1826,6 +2143,8 @@ def main():
         emit({"cuda_vs_cpu": phase_cuda_vs_cpu(device)})
         log("phase ba (the ICL dump)")
         emit({"ba": phase_ba(device)})
+        log("phase ba_scale (the corridor, the incremental modes)")
+        emit({"ba_scale": phase_ba_scale(device)})
         log("phase main_path_closed")
         emit({"main_path_closed": phase_main_path_closed(single, res,
                                                          device)})

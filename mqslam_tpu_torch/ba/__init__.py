@@ -2,10 +2,12 @@
 
 Projection / between / prior factors over Cal3DS2 cameras, damped
 Gauss-Newton with the landmarks marginalized and the reduced camera system
-solved by a dense Cholesky (``solver.solve_delta_dense``), then a float64
-finishing pass on the host (``polish64``).  The JAX package's matrix-free
-PCG path, its layouts, the sharded and incremental solves and the pose
-graph wait for ROADMAP Queue 1 items 11-13.
+solved by a dense Cholesky (``solver.solve_delta_dense``) or, past the
+dense path's size gates, by matrix-free Schur PCG (``solver.solve_delta``)
+over the COO, packed (``packed``) or banded (``banded``) observation
+layouts; a float64 finishing pass on the host (``polish64``); the
+step-batched incremental solve (``incremental``).  The JAX package's
+sharded solves and the pose graph wait for ROADMAP Queue 1 items 12-13.
 """
 
 from mqslam_tpu_torch.ba.problem import (  # noqa: F401

@@ -1,30 +1,37 @@
-"""Damped Gauss-Newton (LM) over a Schur-complement reduced camera system,
-dense path.
+"""Damped Gauss-Newton (LM) over a Schur-complement reduced camera system.
 
 At each outer iteration the problem is linearized once and the landmarks
-are marginalized: ``solve_delta_dense`` materializes the reduced system
+are marginalized.  Two solvers share that linearization:
 
-    S = Hcc + lam D - W (Hpp + lam Dp)^-1 W^T
+- ``solve_delta_dense`` materializes the reduced system
 
-with one scatter of the per-observation W blocks and one matrix product,
-equilibrates it, Cholesky-factors it and solves exactly, with two passes of
-iterative refinement; landmark increments come from closed-form damped 3x3
-back-substitution.  Every operation is a PyTorch library call: the
-JAX package's ``segment_sum`` is ``index_add_``, its ``.at[].add`` scatter
-``index_add_`` on a zeros tensor, its HIGHEST-precision ``einsum`` an
-``einsum`` with TF32 off, its ``cholesky`` / ``solve_triangular``
-``torch.linalg.cholesky_ex`` / ``solve_triangular``.
+      S = Hcc + lam D - W (Hpp + lam Dp)^-1 W^T
 
-A failed factorization is a rejected LM step, as in the JAX package: XLA's
-Cholesky returns NaN for a matrix that is not positive definite, so the
-step's cost is NaN and ``new_cost < cost`` is false.  ``cholesky_ex``
-reports the failure in ``info`` on the device; the factor is turned into
-NaN there, with no host read.
+  with one scatter of the per-observation W blocks and one matrix product,
+  equilibrates it, Cholesky-factors it and solves exactly, with two passes
+  of iterative refinement.  A failed factorization is a rejected LM step,
+  as in the JAX package: XLA's Cholesky returns NaN for a matrix that is
+  not positive definite; ``cholesky_ex`` reports the failure in ``info``
+  and the factor is turned into NaN on the device, with no host read.
+- ``solve_delta`` (matrix-free PCG) applies the reduced operator
 
-The matrix-free PCG path (``method="cg"``), its packed and banded layouts
-and the sharded solves (``axis_name``) are not ported yet (ROADMAP Queue 1
-item 11); asking for them raises.  ``"auto"`` picks dense on every problem
-within the dense path's size gates.
+      B v = (Hcc + lam D) v - Hcp (Hpp + lam Dp)^-1 Hpc v
+
+  without materializing Hcp, over one of three observation layouts: COO
+  (per-observation gathers and ``index_add_`` segment sums), the packed
+  dual layout (``ba/packed.py``) or the gather-free banded grid
+  (``ba/banded.py``); CG is preconditioned with the exact per-pose 6x6
+  diagonal blocks of S (block Jacobi).  It serves problems past the dense
+  path's size gates (``dense_method_ok``).
+
+Landmark increments come from closed-form damped 3x3 back-substitution in
+both.  Every operation is a PyTorch library call: the JAX package's
+``segment_sum`` is ``index_add_``, its HIGHEST-precision products
+``einsum`` / ``bmm`` with TF32 off (``_exact_f32``), its ``cholesky`` /
+``solve_triangular`` ``torch.linalg.cholesky_ex`` / ``solve_triangular``,
+its CG ``while_loop`` a host loop whose state stays on the device (see
+``solve_delta``).  The sharded solves (``axis_name``) belong to the
+multi-agent work (ROADMAP Queue 1 item 12); asking for them raises.
 """
 
 import contextlib
@@ -33,14 +40,19 @@ from typing import NamedTuple
 import torch
 
 from mqslam_tpu_torch.ba import factors
+from mqslam_tpu_torch.ba.banded import (BandedLayout, _Hooks, banded_hooks,
+                                        build_banded_layout, pack_banded)
+from mqslam_tpu_torch.ba.packed import (apply_chunked, build_packed_layout,
+                                        PackedLayout)
 from mqslam_tpu_torch.ba.problem import BAProblem, BAVariables
 from mqslam_tpu_torch.core import so3
 from mqslam_tpu_torch.core.smallmat import matmul_small, matvec_small
 from mqslam_tpu_torch.ops import linalg
 
-__all__ = ["dense_method_ok", "Linearization", "linearize",
-           "solve_delta_dense", "apply_delta", "compute_cost", "lm_solve",
-           "lm_solve_device", "ba_solve"]
+__all__ = ["dense_method_ok", "Linearization", "linearize", "solve_delta",
+           "solve_delta_dense", "pack_jacobians", "pack_for_layout",
+           "apply_delta", "compute_cost", "lm_solve", "lm_solve_device",
+           "ba_solve"]
 
 # Auto-method gates of the dense-Schur path.  Besides the [6F, 6F] reduced
 # system, solve_delta_dense materializes two [F*P, 6, 3] float32 transients
@@ -50,8 +62,13 @@ __all__ = ["dense_method_ok", "Linearization", "linearize",
 _DENSE_MAX_POSE_DIM = 4096
 _DENSE_MAX_FP = 8 * 1024 * 1024
 
-_NOT_PORTED = ("waits for ROADMAP Queue 1 item 11 (BA at scale: the "
-               "matrix-free PCG path, its layouts and sharded solves)")
+_ITEM_12 = ("(a sharded solve) waits for ROADMAP Queue 1 item 12 "
+            "(multi-agent: the sharded layouts and solves)")
+
+# The CG loop reads its stop flag on the host every CG_CHECK_EVERY
+# iterations; in between, iterations past the stop are computed and frozen
+# on the device, so the result equals a loop that stopped at once.
+CG_CHECK_EVERY = 10
 
 
 def dense_method_ok(problem: BAProblem) -> bool:
@@ -60,17 +77,33 @@ def dense_method_ok(problem: BAProblem) -> bool:
             and problem.n_poses * problem.n_points <= _DENSE_MAX_FP)
 
 
-def _check_method(problem, method, layout):
-    """Only the dense path is ported: ``"auto"`` must resolve to it."""
-    if method not in ("auto", "dense"):
-        raise ValueError(f"method={method!r} {_NOT_PORTED}")
-    if method == "auto" and not dense_method_ok(problem):
-        raise ValueError(
-            f"BA problem with F = {problem.n_poses} poses and P = "
-            f"{problem.n_points} points is past the dense path's gates; "
-            f"the CG path it needs {_NOT_PORTED}")
-    if layout not in ("auto", None):
-        raise ValueError(f"layout={layout!r} {_NOT_PORTED}")
+def _resolve_method(problem, method):
+    """``"auto"`` -> dense within ``dense_method_ok``, else CG."""
+    if method == "auto":
+        return "dense" if dense_method_ok(problem) else "cg"
+    if method not in ("dense", "cg"):
+        raise ValueError(f"method={method!r}: 'auto', 'dense' or 'cg'")
+    return method
+
+
+def _auto_layout(problem: BAProblem):
+    """Host-side layout build for the CG path: the gather-free banded grid
+    when it builds, else the packed dual layout, else None (COO)."""
+    args = (problem.obs_pose, problem.obs_point, problem.obs_valid,
+            problem.n_poses, problem.n_points)
+    bl = build_banded_layout(*args)
+    return bl if bl is not None else build_packed_layout(*args)
+
+
+def _resolve_layout(problem, method, layout):
+    """``"auto"`` -> ``_auto_layout`` for CG, None for dense; else a built
+    layout or None."""
+    if isinstance(layout, str):
+        if layout != "auto":
+            raise ValueError(f"layout={layout!r}: 'auto', None or a built "
+                             "PackedLayout / BandedLayout")
+        return _auto_layout(problem) if method == "cg" else None
+    return layout
 
 
 @contextlib.contextmanager
@@ -175,7 +208,7 @@ def compute_cost(problem: BAProblem, v: BAVariables, axis_name=None):
     """0.5 * the sum of squared whitened residuals (a 0-dim tensor on the
     problem's device; reading it is the caller's host sync)."""
     if axis_name is not None:
-        raise ValueError(f"axis_name {_NOT_PORTED}")
+        raise ValueError(f"axis_name {_ITEM_12}")
     r_obs, r_odo, r_pp, r_qp = _residuals(problem, v)
     return 0.5 * torch.sum(r_obs ** 2) + 0.5 * (
         torch.sum(r_odo ** 2) + torch.sum(r_pp ** 2) + torch.sum(r_qp ** 2))
@@ -186,7 +219,7 @@ def linearize(problem: BAProblem, v: BAVariables,
     """Linearize all factors: residuals, Jacobians, gradients, the point
     blocks Hpp and the pose diagonal."""
     if axis_name is not None:
-        raise ValueError(f"axis_name {_NOT_PORTED}")
+        raise ValueError(f"axis_name {_ITEM_12}")
     F = problem.n_poses
     P = problem.n_points
     p6 = _pose6(v)
@@ -270,6 +303,230 @@ def _hpp_damped(lin: Linearization, lam):
     return hpp_solve, linalg.inv3x3(Hpp_d) * point_mask[..., None]
 
 
+def _hcc_rest(problem: BAProblem, lin: Linearization, v):
+    """v [F, 6] -> (odometry + prior) part of Hcc v — O(F), layout-free."""
+    F = problem.n_poses
+    yo = (_Jv(lin.J_odo_from, v[problem.odo_from])
+          + _Jv(lin.J_odo_to, v[problem.odo_to]))
+    out = _seg(_JTr(lin.J_odo_from, yo), problem.odo_from, F)
+    out = out + _seg(_JTr(lin.J_odo_to, yo), problem.odo_to, F)
+    yp = _Jv(lin.J_pp, v[problem.prior_pose_idx])
+    return out + _seg(_JTr(lin.J_pp, yp), problem.prior_pose_idx, F)
+
+
+def _hcc_obs(problem: BAProblem, lin: Linearization, v):
+    """v [F, 6] -> projection part of Hcc v (COO)."""
+    y = _Jv(lin.J_obs_pose, v[problem.obs_pose])
+    return _seg(_JTr(lin.J_obs_pose, y), problem.obs_pose, problem.n_poses)
+
+
+def _hcc_apply(problem: BAProblem, lin: Linearization, v):
+    """v [F, 6] -> Hcc v (projection + odometry + prior parts, undamped)."""
+    return _hcc_obs(problem, lin, v) + _hcc_rest(problem, lin, v)
+
+
+def _pad0(a):
+    """``a`` with one zero row appended: the row sentinel ids index."""
+    return torch.cat([a, a.new_zeros((1,) + a.shape[1:])])
+
+
+def pack_jacobians(lin: Linearization, layout: PackedLayout):
+    """Gather the per-observation Jacobians into the dual dense layout, once
+    per linearization: BOTH Jacobians land in BOTH layouts, so every cross
+    product contracts in place and only the [F, 6] / [P, 3] state vectors
+    are gathered in the CG loop.  The 5th entry is the per-pose observation
+    Gram G_f = sum_k Jp^T Jp [F, 6, 6]: the CG iteration's Hcc-obs leg is
+    exactly G_f @ v_f."""
+    Jp_f = _pad0(lin.J_obs_pose)[layout.fslot]      # [F, Kf, 2, 6]
+    with _exact_f32():
+        G = torch.einsum("fkcx,fkcy->fxy", Jp_f, Jp_f)
+    return (Jp_f,
+            _pad0(lin.J_obs_point)[layout.fslot],   # [F, Kf, 2, 3]
+            _pad0(lin.J_obs_point)[layout.pslot],   # [P, Kp, 2, 3]
+            _pad0(lin.J_obs_pose)[layout.pslot],    # [P, Kp, 2, 6]
+            G)
+
+
+def pack_for_layout(lin: Linearization, layout):
+    """The per-linearization tables of whichever CG layout is in play: the
+    banded grid's (``banded.pack_banded``) or the packed layout's
+    (``pack_jacobians``)."""
+    if isinstance(layout, BandedLayout):
+        with _exact_f32():
+            return pack_banded(lin, layout)
+    return pack_jacobians(lin, layout)
+
+
+def _packed_ops(problem: BAProblem, lin: Linearization, layout: PackedLayout,
+                packedJ=None):
+    """Dense applies for the CG loop over the packed layout: block products
+    plus at most one gather of the small [F, 6] / [P, 3] state vector
+    (``fid_p`` / ``pid_f`` row ids, through ``apply_chunked`` where the
+    layout has its pack-row form); no scatter.  Padding slots index the
+    appended zero rows and contribute nothing.  Returns (hcc_obs, wt_from_v,
+    w_apply, precond_obs_blocks); call them with TF32 off."""
+    Jp_f, Jt_f, Jt_p, Jp_p, G = (pack_jacobians(lin, layout)
+                                 if packedJ is None else packedJ)
+
+    def hcc_obs_v(v):                            # [F, 6] -> [F, 6]
+        return torch.bmm(G, v[:, :, None])[:, :, 0]
+
+    def gather_f(v):                             # v[fid_p] -> [P, Kp, 6]
+        if layout.wg_fid is not None:
+            return apply_chunked(layout.wg_fid, v)
+        return _pad0(v)[layout.fid_p]
+
+    def gather_p(u):                             # u[pid_f] -> [F, Kf, 3]
+        if layout.wg_pid is not None:
+            return apply_chunked(layout.wg_pid, u)
+        return _pad0(u)[layout.pid_f]
+
+    def wt_from_v(v):                            # [F, 6] -> [P, 3]
+        z = torch.einsum("pkcx,pkx->pkc", Jp_p, gather_f(v))
+        return torch.einsum("pkcy,pkc->py", Jt_p, z)
+
+    def w_apply(u):                              # [P, 3] -> [F, 6]
+        w = torch.einsum("fkcy,fky->fkc", Jt_f, gather_p(u))
+        return torch.einsum("fkcx,fkc->fx", Jp_f, w)
+
+    def precond_obs_blocks(Hpp_inv):             # -> [F, 6, 6]
+        Hj = _pad0(Hpp_inv)[layout.pid_f]                    # [F, Kf, 3, 3]
+        A = torch.sum(Jp_f[:, :, :, :, None] * Jt_f[:, :, :, None, :],
+                      dim=2)                                 # [F, Kf, 6, 3]
+        return G - torch.sum(_aha(A, Hj), dim=1)  # JJ term == the Gram
+
+    return hcc_obs_v, wt_from_v, w_apply, precond_obs_blocks
+
+
+def _aha(A, Hj):
+    """A Hj A^T for W blocks A [..., 6, 3] and point blocks Hj [..., 3, 3],
+    as broadcast + sum in the JAX package's order: Hj is ill-conditioned
+    for weakly constrained landmarks, its terms cancel, and this order
+    keeps every layout's preconditioner blocks within float32 roundoff of
+    each other (a library product sums the same terms in another order)."""
+    AH = torch.sum(A[..., :, :, None] * Hj[..., None, :, :], dim=-2)
+    return torch.sum(AH[..., :, None, :] * A[..., None, :, :], dim=-1)
+
+
+def _coo_precond_obs_blocks(problem: BAProblem, lin: Linearization, Hpp_inv):
+    """Observation part of the exact 6x6 diagonal blocks of S, COO form:
+    per observation the W block A = Jp^T Jpt [O, 6, 3] and its Schur
+    correction A Hpp_j^-1 A^T, summed per pose."""
+    A = torch.sum(lin.J_obs_pose[:, :, :, None]
+                  * lin.J_obs_point[:, :, None, :], dim=1)
+    AHA = _aha(A, Hpp_inv[problem.obs_point])              # [O, 6, 6]
+    return _seg(_JTJ(lin.J_obs_pose) - AHA, problem.obs_pose,
+                problem.n_poses)
+
+
+def _layout_hooks(problem, lin, layout, packedJ, hpp_solve, Hpp_inv):
+    """(hcc_obs, corr, w_full, wt_full, pre) of the reduced operator over
+    ``layout``: the Hcc projection part, W M W^T, W, W^T and the
+    observation part of the preconditioner blocks, where M is the damped
+    point-block inverse.  Call them with TF32 off."""
+    if isinstance(layout, BandedLayout):
+        return banded_hooks(problem, lin, layout, packedJ, Hpp_inv)
+    if layout is not None:
+        hcc, wt_v, w_ap, pre_obs = _packed_ops(problem, lin, layout, packedJ)
+        return _Hooks(hcc=hcc, corr=lambda v: w_ap(hpp_solve(wt_v(v))),
+                      w_full=w_ap, wt_full=wt_v,
+                      pre=lambda: pre_obs(Hpp_inv))
+    return _Hooks(
+        hcc=lambda v: _hcc_obs(problem, lin, v),
+        corr=lambda v: _w_apply(problem, lin,
+                                hpp_solve(_w_t_apply(problem, lin, v))),
+        w_full=lambda t: _w_apply(problem, lin, t),
+        wt_full=lambda v: _w_t_apply(problem, lin, v),
+        pre=lambda: _coo_precond_obs_blocks(problem, lin, Hpp_inv))
+
+
+def solve_delta(problem: BAProblem, lin: Linearization, lam,
+                cg_iters: int = 100, cg_tol: float = 1e-6, axis_name=None,
+                layout=None, packedJ=None):
+    """Solve the damped normal equations by matrix-free Schur PCG.
+
+    Returns (delta_pose [F, 6], delta_point [P, 3], cg_iters_used, a 0-dim
+    int32 tensor on the device).  ``layout``: None (COO), a
+    ``PackedLayout`` or a ``BandedLayout``; ``packedJ`` its
+    ``pack_for_layout`` tables, or None to pack here.  The reduced camera
+    system is solved by CG preconditioned with its exact per-pose 6x6
+    diagonal blocks (block Jacobi): with one observation per (pose, point)
+    pair, diag_blk(S)_f = sum_obs Jp^T Jp + odometry / prior blocks +
+    damping - sum_obs A (Hpp + lam Dp)^-1 A^T, A = Jp^T Jpt, exactly.  With
+    a duplicated pair the blocks are no longer exact and CG converges more
+    slowly, to the same solution over COO and the packed layout (the
+    banded builder refuses such a problem).
+
+    CG stops once ||r|| <= cg_tol * ||b|| or after ``cg_iters``
+    iterations, as the JAX package's ``while_loop``.  Its state stays on
+    the device: an iteration past the stop is computed and discarded by
+    ``torch.where``, so x, r and the count equal those of a loop that
+    stopped, and the host reads the stop flag every ``CG_CHECK_EVERY``
+    iterations only."""
+    if axis_name is not None:
+        raise ValueError(f"axis_name {_ITEM_12}")
+    F = problem.n_poses
+    dt = lin.g_pose.dtype
+    pose_mask = lin.pose_free[:, None].to(dt)
+    hpp_solve, Hpp_inv = _hpp_damped(lin, lam)
+    damp = lam * torch.clamp(lin.diag_pose, min=1e-12)          # [F, 6]
+    eye6 = torch.eye(6, dtype=dt, device=lin.g_pose.device)
+
+    with _exact_f32():
+        hooks = _layout_hooks(problem, lin, layout, packedJ, hpp_solve,
+                              Hpp_inv)
+
+        def B_apply(vv):
+            vv = vv * pose_mask
+            hv = hooks.hcc(vv) + _hcc_rest(problem, lin, vv) + damp * vv
+            return (hv - hooks.corr(vv)) * pose_mask
+
+        # reduced RHS: -g_c + W Hpp^-1 g_p
+        b = (-lin.g_pose + hooks.w_full(hpp_solve(lin.g_point))) * pose_mask
+
+        # block-Jacobi preconditioner: the exact 6x6 diagonal blocks of B
+        blk = hooks.pre()
+        blk = blk + _seg(_JTJ(lin.J_odo_from), problem.odo_from, F)
+        blk = blk + _seg(_JTJ(lin.J_odo_to), problem.odo_to, F)
+        blk = blk + _seg(_JTJ(lin.J_pp), problem.prior_pose_idx, F)
+        blk = blk + damp[:, :, None] * eye6
+        blk = torch.where(lin.pose_free[:, None, None], blk, eye6)
+
+        def Minv_apply(rr):
+            return linalg.solve6x6_spd(blk, rr) * pose_mask
+
+        bb = torch.sum(b * b)
+        thr = cg_tol ** 2 * bb
+        x, r = torch.zeros_like(b), b
+        z = Minv_apply(b)
+        p, rz = z, torch.sum(b * z)
+        it = torch.zeros((), dtype=torch.int32, device=b.device)
+        done = ~(torch.sum(r * r) > thr)
+        for k in range(cg_iters):
+            if k % CG_CHECK_EVERY == 0 and bool(done):
+                break
+            Ap = B_apply(p)
+            pAp = torch.sum(p * Ap)
+            alpha = torch.where(pAp > 1e-30, rz / pAp, 0.0)
+            x2 = x + alpha * p
+            r2 = r - alpha * Ap
+            z2 = Minv_apply(r2)
+            rz2 = torch.sum(r2 * z2)
+            beta = torch.where(rz > 1e-30, rz2 / rz, 0.0)
+            p2 = z2 + beta * p
+            go = ~done
+            x, r, z = (torch.where(go, x2, x), torch.where(go, r2, r),
+                       torch.where(go, z2, z))
+            p, rz = torch.where(go, p2, p), torch.where(go, rz2, rz)
+            it = it + go.to(torch.int32)
+            done = done | ~(torch.sum(r * r) > thr)
+        delta_pose = x * pose_mask
+
+        # back-substitute landmarks: dp = -Hpp^-1 (g_p + W^T dc)
+        delta_point = -hpp_solve(lin.g_point + hooks.wt_full(delta_pose))
+    return delta_pose, delta_point, it
+
+
 def _reduced_system(problem: BAProblem, lin: Linearization, lam, hpp):
     """The damped reduced camera system (S [6F, 6F], b [6F]) for ``hpp =
     _hpp_damped(lin, lam)``: W scattered
@@ -282,7 +539,7 @@ def _reduced_system(problem: BAProblem, lin: Linearization, lam, hpp):
     # the flat scatter index below is int32
     if F * P >= 2 ** 31:
         raise ValueError(f"dense path scatter index overflows int32 "
-                         f"(F*P = {F * P}); the CG path {_NOT_PORTED}")
+                         f"(F*P = {F * P}); use method='cg'")
     n = F * 6
     dev = lin.Hpp.device
     hpp_solve, Hpp_inv = hpp
@@ -382,24 +639,40 @@ def lm_solve(problem: BAProblem, v0: BAVariables = None, max_iters: int = 60,
              max_retries: int = 6):
     """Levenberg-Marquardt outer loop, accept / reject on the host.
 
-    Linearize once per outer iteration; up to ``max_retries`` solve attempts
-    against that linearization, lambda multiplied by ``lam_up`` after a rejected one and
-    divided by ``lam_down`` after an accepted one; stop when no attempt
-    improves (or, with ``rtol``, when the relative decrease falls below it).
-    Each attempt reads its cost on the host.  ``method``: ``"dense"`` or
-    ``"auto"`` (dense within ``dense_method_ok``); ``cg_iters`` / ``cg_tol``
-    belong to the CG path (not ported) and are ignored.  Returns (v, history
-    of costs, one per outer iteration after the initial one)."""
-    _check_method(problem, method, layout)
+    Linearize once per outer iteration (and, on the CG path over a layout,
+    pack its tables once: ``pack_for_layout``); up to ``max_retries`` solve
+    attempts against that linearization, lambda multiplied by ``lam_up``
+    after a rejected one and divided by ``lam_down`` after an accepted one;
+    stop when no attempt improves (or, with ``rtol``, when the relative
+    decrease falls below it).  Each attempt reads its cost on the host.
+
+    ``method``: ``"dense"`` (``solve_delta_dense``), ``"cg"``
+    (``solve_delta`` with ``cg_iters`` / ``cg_tol``) or ``"auto"``, dense
+    within ``dense_method_ok``, else CG.  ``layout`` (CG only): ``"auto"``
+    (``_auto_layout``: banded, else packed, else COO), None (COO) or a
+    built layout.  Weakly constrained SLAM chains have long, nearly flat
+    valleys that only near-exact Newton steps walk to the right basin, so
+    the CG defaults are a high iteration budget and a tight tolerance.
+    Returns (v, history of costs, one per outer iteration after the
+    initial one)."""
+    method = _resolve_method(problem, method)
+    layout = _resolve_layout(problem, method, layout)
     v = v0 or problem.init
     lam = lam0
     cost = float(compute_cost(problem, v))
     history = [cost]
     for it in range(max_iters):
         lin = linearize(problem, v)
+        pJ = (pack_for_layout(lin, layout)
+              if layout is not None and method == "cg" else None)
         improved = False
         for _ in range(max_retries):  # lambda escalation attempts
-            dc, dp = solve_delta_dense(problem, lin, lam)
+            if method == "dense":
+                dc, dp = solve_delta_dense(problem, lin, lam)
+            else:
+                dc, dp, _ = solve_delta(problem, lin, lam, cg_iters=cg_iters,
+                                        cg_tol=cg_tol, layout=layout,
+                                        packedJ=pJ)
             v_try = apply_delta(v, dc, dp)
             new_cost = float(compute_cost(problem, v_try))
             if new_cost < cost:
@@ -436,8 +709,8 @@ def lm_solve_device(problem: BAProblem, v0: BAVariables = None,
     as the JAX package's."""
     v, hist = lm_solve(problem, v0, max_iters=max_iters, lam0=lam0,
                        lam_up=lam_up, lam_down=lam_down,
-                       max_retries=max_retries, method=method,
-                       layout=layout)
+                       max_retries=max_retries, cg_iters=cg_iters,
+                       cg_tol=cg_tol, method=method, layout=layout)
     return v, hist, len(hist) - 1
 
 

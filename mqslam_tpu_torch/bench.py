@@ -23,15 +23,21 @@ the port has the modules for:
   bench's real SVO dump is not in the repo, and the JAX bench falls back to
   the same cube without it); both keys time the same host-driven loop
   until the port has a device-side one (``lm_solve_device`` wraps
-  ``lm_solve``);
+  ``lm_solve``); the incremental figure is null without that dump, as in
+  the JAX bench;
+* BA at scale (``corridor_cg``): ms per CG iteration of ``solve_delta``
+  over the banded, packed and COO layouts on the corridor problem (F =
+  2048 poses, 24 landmarks a frame), the slope between 25- and
+  100-iteration budgets run in full (``cg_tol=0``), and each layout's bytes
+  an iteration against the card's memory rate (``efficiency.cg_*``,
+  ``banded_cg_*``, ``coo_cg_*``);
 * ``vs_baseline``: OpenCV's per-frame ladder on the host's CPU where cv2
   imports, else 30 frames/s (real time).
 
-The JAX bench's incremental-BA figure is ``null`` and its corridor-CG and
-loop-closure sections are left out of ``extra`` (their modules are not
-ported yet: ``NOT_PORTED``); the log on stderr names each.  Every function
-takes ``device=`` (None: the CUDA device), so the tests run them on the CPU
-at tiny sizes; a time from a CPU run is not a device figure.
+The JAX bench's loop-closure section is left out of ``extra`` (its modules
+are not ported yet: ``NOT_PORTED``); the log on stderr names it.  Every
+function takes ``device=`` (None: the CUDA device), so the tests run them
+on the CPU at tiny sizes; a time from a CPU run is not a device figure.
 """
 
 import concurrent.futures
@@ -51,17 +57,13 @@ from mqslam_tpu_torch.ops import triangulation as tri
 
 __all__ = ["render_fleet", "bench_single", "bench_multi",
            "bench_multi_divergent", "lk_pair_inputs", "bench_lk_impls",
-           "lk_efficiency", "bench_ba_iters",
-           "bench_triangulation", "bench_opencv_baseline", "summary",
+           "lk_efficiency", "bench_ba_iters", "bench_corridor_cg",
+           "cg_efficiency", "bench_triangulation", "bench_opencv_baseline", "summary",
            "main"]
 
 METRIC = "slam_frontend_aggregate_frames_per_s_per_chip"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 NOT_PORTED = (
-    ("ba_incremental", "ba_incremental_steps_per_s (null)",
-     "ROADMAP Queue 1 item 11 (BA at scale: incremental_solve_device)"),
-    ("bench_corridor_cg", "corridor_cg, efficiency.cg_*",
-     "ROADMAP Queue 1 item 11 (BA at scale)"),
     ("bench_loopclosure", "loop_closure", "ROADMAP Queue 1 item 13 (loop "
      "closure)"),
 )
@@ -312,8 +314,12 @@ def bench_ba_iters(max_iters=15, repeats=2, nr_cameras=2, nr_frames=20,
     loop, so the two keys time the same loop) and the host loop
     (``lm_solve``), each after one warm-up solve, best of ``repeats``, host
     clock closed by a synchronize.
+    ``ba_incremental_steps_per_s`` is None: the JAX bench gives it only on
+    the reference's real SVO dump, which is not in this repo, and null on
+    the cube; ``chip_smoke.py``'s ``ba_scale`` phase measures the
+    incremental steps/s on the in-repo ICL dump instead.
     Returns {ba_lm_iterations_per_s, ba_lm_iterations_per_s_host_loop,
-    ba_incremental_steps_per_s (None: not ported), ba_workload}."""
+    ba_incremental_steps_per_s, ba_workload}."""
     from mqslam_tpu_torch.ba import problem as bp, solver as bs
     from mqslam_tpu_torch.ba import synthetic as bsyn
     device = resolve_device(device)
@@ -338,6 +344,93 @@ def bench_ba_iters(max_iters=15, repeats=2, nr_cameras=2, nr_frames=20,
             "ba_lm_iterations_per_s_host_loop": n["host"] / best_host,
             "ba_incremental_steps_per_s": None,
             "ba_workload": f"synthetic-cube-{nr_cameras}cam"}
+
+
+def bench_corridor_cg(F=2048, ppf=24, repeats=3, device=None):
+    """ms per CG iteration of ``solve_delta`` on the corridor problem (F
+    poses, ``ppf`` landmarks a frame; 2048 / 24 is the JAX bench's
+    production size, about 370k observations) over the banded grid, the
+    packed layout and COO: the slope between a 25- and a 100-iteration
+    budget, each run in full (``cg_tol=0``) from one linearization, best of
+    ``repeats``, host clock closed by a synchronize.  A layout whose
+    builder refuses the problem has no row."""
+    from mqslam_tpu_torch.ba import solver as bs, synthetic as bsyn
+    from mqslam_tpu_torch.ba.banded import build_banded_layout
+    from mqslam_tpu_torch.ba.packed import build_packed_layout
+    device = resolve_device(device)
+    prob, _ = bsyn.generate_corridor_problem(nr_frames=F,
+                                             points_per_frame=ppf,
+                                             device=device)
+    args = (prob.obs_pose, prob.obs_point, prob.obs_valid, prob.n_poses,
+            prob.n_points)
+    layouts = {"banded": build_banded_layout(*args),
+               "packed": build_packed_layout(*args), "coo": None}
+    lin = bs.linearize(prob, prob.init)
+    out = {"F": F, "O": int(prob.obs_valid.sum()), "P": prob.n_points}
+    packed, banded = layouts["packed"], layouts["banded"]
+    if packed is not None:
+        out.update(Kf=packed.Kf, Kp=packed.Kp)
+    if banded is not None:
+        out.update(banded_J=banded.J, banded_Ks=banded.Ks,
+                   banded_left=banded.n_left, banded_L=banded.L)
+    for name, lay in layouts.items():
+        if name != "coo" and lay is None:
+            _log(f"corridor CG: the {name} builder refused the problem")
+            continue
+        pj = bs.pack_for_layout(lin, lay) if lay is not None else None
+        ts = {}
+        for budget in (25, 100):
+            def run():
+                return bs.solve_delta(prob, lin, 1e-3, cg_iters=budget,
+                                      cg_tol=0.0, layout=lay, packedJ=pj)
+            run()
+            ts[budget] = _best(run, device, repeats)
+        per_iter = (ts[100] - ts[25]) / 75
+        out[name + "_cg_iter_ms"] = per_iter * 1e3
+        out[name + "_cg_iters_per_s"] = 1.0 / per_iter
+    return out
+
+
+def cg_efficiency(corridor):
+    """The bytes one CG iteration of each layout must move, against the
+    card's memory rate (the JAX bench's ``cg_efficiency`` over
+    ``HBM_BYTES_PER_S``): each table the iteration reads, once, plus the
+    state vectors.  Packed: the per-pose Gram, the four packed Jacobian
+    tables, the two gathered state copies, the point blocks and vectors.
+    Banded: the Awt and M-folded At2 tables, the dense leftover block and
+    its M-folded copy, the shifted state copy and its partial sums, the CG
+    vectors and the Gram.  COO: both Jacobians of every valid observation,
+    its two ids, the point blocks and the vectors."""
+    F, P, O = corridor["F"], corridor["P"], corridor["O"]
+    out = {}
+
+    def put(prefix, ms, by):
+        if isinstance(ms, (int, float)):
+            sol = by / HBM_BYTES_PER_S * 1e3
+            out.update({prefix + "bytes_moved_mb": by / 1e6,
+                        prefix + "hbm_sol_ms": sol,
+                        prefix + "x_over_hbm_sol": ms / sol})
+
+    if "Kf" in corridor:
+        Kf, Kp = corridor["Kf"], corridor["Kp"]
+        put("cg_", corridor.get("packed_cg_iter_ms"),
+            F * 36 * 4                                  # Gram G_f
+            + F * Kf * 12 * 4 + F * Kf * 6 * 4          # Jp_f + Jt_f (w leg)
+            + P * Kp * 12 * 4 + P * Kp * 6 * 4          # Jp_p + Jt_p (wt leg)
+            + P * Kp * 6 * 4 + F * Kf * 3 * 4           # vp / uf gathers
+            + 2 * P * 9 * 4 + 2 * P * 3 * 4)            # Hpp blocks + vecs
+    if "banded_J" in corridor:
+        J, Ks, L = (corridor["banded_J"], corridor["banded_Ks"],
+                    corridor["banded_L"])
+        put("banded_cg_", corridor.get("banded_cg_iter_ms"),
+            2 * F * J * Ks * 18 * 4                     # Awt + At2
+            + 2 * F * 6 * 3 * 4                         # V pack + q
+            + 2 * P * 3 * 4 + F * 36 * 4                # CG vectors + Gram
+            + 2 * F * L * 18 * 4)                       # Wd + Dd
+    put("coo_cg_", corridor.get("coo_cg_iter_ms"),
+        O * (12 + 6) * 4 + O * 2 * 4                    # Jacobians + ids
+        + P * 9 * 4 + 2 * P * 3 * 4 + 2 * F * 6 * 4)    # Hpp + vectors
+    return out
 
 
 def bench_opencv_baseline(imgs, P_list, f, size, plane_z, passes=2):
@@ -394,9 +487,10 @@ def _opencv_ladder_once(imgs, P_list, f, size, plane_z):
 
 
 def summary(scaling, cloned, fps1, lk_ms, tri_mps, eff, base, device_info,
-            ba):
+            ba, corridor):
     """The JSON line: the headline is the best point of the divergent
-    sweep; ``ba`` is ``bench_ba_iters``'s dict."""
+    sweep; ``ba`` is ``bench_ba_iters``'s dict, ``corridor``
+    ``bench_corridor_cg``'s."""
     best_A = max(scaling, key=lambda k: scaling[k])
     headline = scaling[best_A]
     return {
@@ -412,6 +506,7 @@ def summary(scaling, cloned, fps1, lk_ms, tri_mps, eff, base, device_info,
             **ba,
             "lk_per_call_ms": lk_ms,
             "triangulation_mpts_per_s": tri_mps,
+            "corridor_cg": corridor,
             "efficiency": eff,
             "cv2_ladder_fps_host": base,
             "device": device_info,
@@ -473,8 +568,11 @@ def main():
     _log(f"LK ms per call: {lk_ms}")
     tri_mps = bench_triangulation(device=device)
     _log(f"triangulation Mpoints/s: {tri_mps}")
+    corridor = bench_corridor_cg(device=device)
+    _log(f"corridor CG: {corridor}")
     eff = lk_efficiency(lk_ms)
-    _log(f"LK against the memory bound: {eff}")
+    eff.update(cg_efficiency(corridor))
+    _log(f"LK and CG against the memory bound: {eff}")
     ba = bench_ba_iters(device=device)
     _log(f"BA: {ba}")
 
@@ -485,7 +583,8 @@ def main():
     else:
         _log(f"baseline: cv2 ladder {base:.2f} frames/s on the host's CPU")
     print(json.dumps(summary(scaling, cloned, fps1, lk_ms, tri_mps, eff,
-                             base, _device_info(device), ba)), flush=True)
+                             base, _device_info(device), ba, corridor)),
+          flush=True)
     return 0
 
 

@@ -7,10 +7,11 @@
 
 The argument surface of the reference back-end (bundle_adjust.cpp) and of
 the JAX package's ``ba_run``.  ``mode`` 0 = full batch LM (``lm_solve``,
-then the float64 ``polish64`` pass); the step-batched incremental modes 1
-and 2 (``incremental_solve``) are not ported yet (ROADMAP Queue 1 item 11)
-and are refused.  ``runFromGenerated`` 1 solves the synthetic cube scenario
-instead of the dump.  Writes traj_out.camC-<baseName>-BA.txt and
+then the float64 ``polish64`` pass); 1 and 2 = the step-batched
+incremental solve (``incremental_solve``, the counterpart of the
+reference's iSAM modes; both modes run it, with no polish, as the JAX
+package's CLI does).  ``runFromGenerated`` 1 solves the synthetic cube
+scenario instead of the dump.  Writes traj_out.camC-<baseName>-BA.txt and
 map_out-<baseName>-BA.pcd into baseDir.  ``--device`` (anywhere in the
 arguments) picks the torch device: the CUDA device by default.
 """
@@ -22,16 +23,14 @@ import torch
 
 from mqslam_tpu_torch import resolve_device
 
-_MODES_NOT_PORTED = ("waits for ROADMAP Queue 1 item 11 (the incremental "
-                     "solve, ba/incremental.py)")
-
 
 def run(base_dir, base_name, nr_cameras, fps, use_odometry=True,
         full_optimize_at_second_batch=True, start_time=0.0,
         first_frame_after=True, mode=0, run_from_generated=False,
         max_iters=60, cg_iters=1000, verbose=True, device=None):
-    """One BA run; returns (BAVariables, cost history: LM's, then the
-    polish's accepted costs)."""
+    """One BA run; returns (BAVariables, cost history: mode 0 LM's, then the
+    polish's accepted costs; modes 1 and 2 one cost a step)."""
+    from mqslam_tpu_torch.ba import incremental as binc
     from mqslam_tpu_torch.ba import problem as bp, solver as bs
     from mqslam_tpu_torch.ba import synthetic as bsyn
     from mqslam_tpu_torch.ba.polish64 import polish64
@@ -41,9 +40,6 @@ def run(base_dir, base_name, nr_cameras, fps, use_odometry=True,
     from mqslam_tpu_torch.io import ba_info, pcd, tum
     from mqslam_tpu_torch.io.nputil import matrix_to_quat_np
 
-    if mode != 0:
-        raise ValueError(f"ba_run mode {mode} {_MODES_NOT_PORTED}; mode 0 "
-                         "(full batch LM) is ported")
     device = resolve_device(device)
     if run_from_generated:
         data = bsyn.generate_cube_scenario(nr_cameras=nr_cameras)
@@ -57,12 +53,18 @@ def run(base_dir, base_name, nr_cameras, fps, use_odometry=True,
     if not use_odometry:
         prob = prob._replace(odo_valid=torch.zeros_like(prob.odo_valid))
 
-    v, hist = bs.lm_solve(prob, max_iters=max_iters, cg_iters=cg_iters,
-                          verbose=verbose)
-    # float64 finishing pass: the float32 LM converges to the float32 cost
-    # floor; the last stretch of the valley is below that resolution
-    v, hist64 = polish64(prob, v, max_iters=12, verbose=verbose)
-    hist = hist + hist64[1:]
+    if mode == 0:
+        v, hist = bs.lm_solve(prob, max_iters=max_iters, cg_iters=cg_iters,
+                              verbose=verbose)
+        # float64 finishing pass: the float32 LM converges to the float32
+        # cost floor; the last stretch of the valley is below that
+        # resolution
+        v, hist64 = polish64(prob, v, max_iters=12, verbose=verbose)
+        hist = hist + hist64[1:]
+    else:
+        v, hist = binc.incremental_solve(data, prob,
+                                         use_odometry=use_odometry,
+                                         verbose=verbose)
     if verbose:
         print(f"cost: {hist[0]:.4e} -> {hist[-1]:.4e} "
               f"({len(hist) - 1} accepted iterations)")
@@ -127,10 +129,6 @@ def main(argv=None):
             break
         opt[keys[i]] = type(opt[keys[i]])(float(raw)) \
             if keys[i] == "start_time" else type(opt[keys[i]])(int(raw))
-    if opt["mode"] != 0:
-        print(f"ba_run: mode {opt['mode']} {_MODES_NOT_PORTED}",
-              file=sys.stderr)
-        return 2
     run(base_dir, base_name, nr_cameras, fps, device=device, **opt)
     return 0
 

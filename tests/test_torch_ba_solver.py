@@ -254,21 +254,26 @@ def test_failed_factorization_is_a_rejected_step(problems, monkeypatch):
 
 
 def test_refusals(problems):
+    """The sharded solves (``axis_name``) are refused, naming ROADMAP item
+    12; a problem past the dense gates now takes the CG path; an unknown
+    method or layout name is refused."""
     T = problems["cube"]["T"]
-    for kw in ({"method": "cg"}, {"layout": "packed"}):
-        for fn in (ts.lm_solve, ts.lm_solve_device):
-            with pytest.raises(ValueError, match="item 11"):
-                fn(T, **kw)
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="item 12"):
         ts.linearize(T, T.init, axis_name="x")
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="item 12"):
         ts.compute_cost(T, T.init, axis_name="x")
+    lin = ts.linearize(T, T.init)
+    with pytest.raises(ValueError, match="item 12"):
+        ts.solve_delta(T, lin, 1e-3, axis_name="x")
+    for kw in ({"method": "qr"}, {"method": "cg", "layout": "packed"}):
+        with pytest.raises(ValueError, match="'auto'"):
+            ts.lm_solve(T, **kw)
     assert ts.dense_method_ok(T) == js.dense_method_ok(problems["cube"]["J"])
     big = T._replace(init=T.init._replace(
         pose_r=torch.zeros(700, 3), pose_t=torch.zeros(700, 3)))
     assert not ts.dense_method_ok(big)
-    with pytest.raises(ValueError, match="item 11"):
-        ts.lm_solve(big)
+    assert ts._resolve_method(big, "auto") == "cg"
+    assert ts._resolve_method(T, "auto") == "dense"
     assert ts.ba_solve is ts.lm_solve
 
 

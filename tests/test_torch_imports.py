@@ -40,7 +40,7 @@ def test_slice_modules_present():
               "io.intrinsics", "io.images", "io.nputil", "ops.extract",
               "ops.lk_iterate", "bench", "ba", "ba.factors", "ba.problem",
               "ba.solver", "ba.polish64", "ba.validate", "ba.synthetic",
-              "cli.ba_run", "eval", "eval.associate", "eval.ate",
+              "ba.packed", "ba.banded", "ba.incremental", "cli.ba_run", "eval", "eval.associate", "eval.ate",
               "eval.rpe", "eval.alignment", "cli.evaluate_ate",
               "cli.evaluate_rpe", "cli.align_traj"):
         assert "mqslam_tpu_torch." + m in mods, m
@@ -108,6 +108,13 @@ def test_entry_points_need_a_cuda_device_by_default(no_cuda):
                       np.zeros((48, 64), np.float32), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.state_from_numpy({})
+    from mqslam_tpu_torch.ba import banded, packed, synthetic
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic.generate_corridor_problem(8, 2)
+    ids = (np.arange(8) % 4, np.arange(8) % 3, np.ones(8, bool), 4, 3)
+    for build in (packed.build_packed_layout, banded.build_banded_layout):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(*ids)             # NumPy ids: the tables go to the card
     assert mqslam_tpu_torch.resolve_device("cpu") == torch.device("cpu")
 
 
