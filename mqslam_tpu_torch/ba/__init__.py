@@ -6,8 +6,10 @@ solved by a dense Cholesky (``solver.solve_delta_dense``) or, past the
 dense path's size gates, by matrix-free Schur PCG (``solver.solve_delta``)
 over the COO, packed (``packed``) or banded (``banded``) observation
 layouts; a float64 finishing pass on the host (``polish64``); the
-step-batched incremental solve (``incremental``).  The JAX package's
-sharded solves and the pose graph wait for ROADMAP Queue 1 items 12-13.
+step-batched incremental solve (``incremental``).  The solver's ``group``
+path and the sharded layouts serve the sharded solve
+(``mqslam_tpu_torch.parallel.sharded_ba``); the pose graph waits for
+ROADMAP Queue 1 item 13.
 """
 
 from mqslam_tpu_torch.ba.problem import (  # noqa: F401

@@ -22,10 +22,13 @@ poses): a run of G slots is one row of the sliding pack ``B[i] = v[i:i+G]``.
 It returns exactly the plain gather's values; the solver takes it wherever
 the builder made one, as the JAX package does.
 
+``ShardedPackedLayout`` is the per-device form for the sharded solve: each
+of D ranks holds one contiguous slice of the (padded) observation rows, and
+its tables cover only the poses / landmarks that slice touches, through row
+maps (``solver._packed_ops_rows``).
+
 The builders are copies of the JAX package's (``mqslam_tpu/ba/packed.py``),
-so the tables are equal to its tables as integers.  The per-device sharded
-layout (``ShardedPackedLayout``) belongs to the multi-agent work (ROADMAP
-Queue 1 item 12) and is not here.
+so the tables are equal to its tables as integers.
 """
 
 from typing import NamedTuple, Optional
@@ -36,7 +39,8 @@ import torch
 from mqslam_tpu_torch import resolve_device
 
 __all__ = ["PackedLayout", "build_packed_layout", "ChunkedGather",
-           "build_chunked_gather", "apply_chunked"]
+           "build_chunked_gather", "apply_chunked", "ShardedPackedLayout",
+           "build_sharded_packed_layout", "layout_shard"]
 
 
 class ChunkedGather(NamedTuple):
@@ -210,3 +214,126 @@ def build_packed_layout(obs_pose, obs_point, obs_valid, n_poses: int,
         pid_f=_i32(pid_f, device), fid_p=_i32(fid_p, device),
         wg_fid=build_chunked_gather(fid_p, n_poses, device=device),
         wg_pid=build_chunked_gather(pid_f, n_points, device=device))
+
+
+class ShardedPackedLayout(NamedTuple):
+    """Per-device compact packed layout, stacked on a leading shard axis.
+
+    Rank d holds the observation slice ``[d*per, (d+1)*per)`` of the
+    (padded) COO arrays; its tables cover only the poses / landmarks that
+    slice touches, addressed through row maps, so per-device dense matvec
+    work scales 1/D instead of re-reading F / P mostly-empty rows.  A rank
+    takes its own block (``layout_shard``, the leading axis dropped): its
+    slot indices are LOCAL to its obs slice (sentinel = the slice length),
+    and partial [Fd, 6] / [Pd, 3] results scatter through ``rows_f`` /
+    ``rows_p`` into global vectors that are summed over the ranks (see
+    ``solver._packed_ops_rows``)."""
+    fslot: torch.Tensor     # [D, Fd, Kf] local obs index (sentinel = per)
+    pslot: torch.Tensor     # [D, Pd, Kp] local obs index (sentinel = per)
+    pid_f: torch.Tensor     # [D, Fd, Kf] GLOBAL landmark id (sentinel = P)
+    fid_p: torch.Tensor     # [D, Pd, Kp] GLOBAL pose id (sentinel = F)
+    rows_f: torch.Tensor    # [D, Fd] global pose id per row (sentinel = F)
+    rows_p: torch.Tensor    # [D, Pd] global landmark id (sentinel = P)
+
+
+def _shard_tables(op, opt, ov, n_poses, n_points, lo, hi):
+    """One shard's compact dual layout over its [lo, hi) obs slice.
+
+    All slot indices local to the slice; rows_* map local rows to global
+    pose / landmark ids."""
+    per = hi - lo
+    sel = np.nonzero(ov[lo:hi])[0]           # local indices
+    op_l = op[lo:hi]
+    opt_l = opt[lo:hi]
+    rows_f, op_row = np.unique(op_l[sel], return_inverse=True) \
+        if len(sel) else (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    rows_p, opt_row = np.unique(opt_l[sel], return_inverse=True) \
+        if len(sel) else (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    # slot tables over local rows
+    op_rows = np.zeros(per, np.int64)
+    op_rows[sel] = op_row
+    opt_rows = np.zeros(per, np.int64)
+    opt_rows[sel] = opt_row
+    fslot, _, Kf = _slot_table(op_rows, sel, max(len(rows_f), 1), per)
+    pslot, _, Kp = _slot_table(opt_rows, sel, max(len(rows_p), 1), per)
+    pid_f = np.where(fslot < per,
+                     opt_l[np.minimum(fslot, max(per - 1, 0))], n_points)
+    fid_p = np.where(pslot < per,
+                     op_l[np.minimum(pslot, max(per - 1, 0))], n_poses)
+    return dict(fslot=fslot, pslot=pslot, pid_f=pid_f, fid_p=fid_p,
+                rows_f=rows_f, rows_p=rows_p, Kf=Kf, Kp=Kp, per=per)
+
+
+def build_sharded_packed_layout(obs_pose, obs_point, obs_valid,
+                                n_poses: int, n_points: int, n_shards: int,
+                                max_ratio: float = 6.0, device=None):
+    """Build per-shard compact layouts for obs arrays pre-padded to a
+    multiple of ``n_shards`` (``parallel.pad_problem_for_shards``'s
+    split).
+
+    Returns a ShardedPackedLayout with uniform per-shard table sizes
+    (padded to the max across shards), or None when the rows do not split
+    evenly, there are no valid observations or the padded tables would
+    exceed ``max_ratio`` x the raw observation count (degenerate
+    distributions: COO applies then).  Tables land on ``device`` (None: the
+    device of ``obs_pose`` if a tensor, else the CUDA device)."""
+    device = _table_device(obs_pose, device)
+    op = _as_numpy(obs_pose, np.int64)
+    opt = _as_numpy(obs_point, np.int64)
+    ov = _as_numpy(obs_valid, bool)
+    O = len(op)
+    if O % n_shards != 0:
+        return None
+    n_valid = int(ov.sum())
+    if n_valid == 0:
+        return None
+    per = O // n_shards
+    shards = [_shard_tables(op, opt, ov, n_poses, n_points,
+                            d * per, (d + 1) * per)
+              for d in range(n_shards)]
+    Fd = max(max(len(s["rows_f"]) for s in shards), 1)
+    Pd = max(max(len(s["rows_p"]) for s in shards), 1)
+    Kf = max(s["Kf"] for s in shards)
+    Kp = max(s["Kp"] for s in shards)
+    if n_shards * (Fd * Kf + Pd * Kp) > max_ratio * n_valid:
+        return None
+
+    def stack(key, rows, K, sent):
+        out = np.full((n_shards, rows, K), sent, dtype=np.int64)
+        for d, s in enumerate(shards):
+            t = s[key]
+            out[d, :t.shape[0], :t.shape[1]] = t
+        return out
+
+    def stack_rows(key, rows, sent):
+        out = np.full((n_shards, rows), sent, dtype=np.int64)
+        for d, s in enumerate(shards):
+            out[d, :len(s[key])] = s[key]
+        return out
+
+    return ShardedPackedLayout(
+        fslot=_i32(stack("fslot", Fd, Kf, per), device),
+        pslot=_i32(stack("pslot", Pd, Kp, per), device),
+        pid_f=_i32(stack("pid_f", Fd, Kf, n_points), device),
+        fid_p=_i32(stack("fid_p", Pd, Kp, n_poses), device),
+        rows_f=_i32(stack_rows("rows_f", Fd, n_poses), device),
+        rows_p=_i32(stack_rows("rows_p", Pd, n_points), device))
+
+
+def layout_shard(layout, rank: int, device=None):
+    """Rank ``rank``'s block of a stacked sharded layout (a
+    ``ShardedPackedLayout`` or ``banded.ShardedBandedLayout``): every
+    tensor field indexed ``[rank]`` and moved to ``device`` (None: where it
+    is), integer fields kept; a sharded banded layout's ``gstart`` becomes
+    this rank's base pose as a Python int.  The JAX package squeezes the
+    same block inside ``shard_map``."""
+    def take(name, x):
+        if not torch.is_tensor(x):
+            return x
+        x = x[rank]
+        if name == "gstart":
+            return int(x)
+        return x if device is None else x.to(device)
+
+    return type(layout)(*(take(n, x) for n, x in zip(layout._fields,
+                                                       layout)))

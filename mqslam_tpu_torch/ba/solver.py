@@ -30,20 +30,31 @@ both.  Every operation is a PyTorch library call: the JAX package's
 ``einsum`` / ``bmm`` with TF32 off (``_exact_f32``), its ``cholesky`` /
 ``solve_triangular`` ``torch.linalg.cholesky_ex`` / ``solve_triangular``,
 its CG ``while_loop`` a host loop whose state stays on the device (see
-``solve_delta``).  The sharded solves (``axis_name``) belong to the
-multi-agent work (ROADMAP Queue 1 item 12); asking for them raises.
+``solve_delta``).
+
+Sharded solves: where the JAX package takes a mesh ``axis_name`` (inside
+``shard_map``), these functions take ``group``, a ``torch.distributed``
+process group.  Each rank then holds its own slice of the observation rows
+(``parallel.sharded_ba``), pose and landmark vectors stay replicated, and
+every ``psum`` of the JAX package is an ``all_reduce`` (SUM) over the group
+of a freshly computed partial (``_psum``).  ``group=None`` is the
+single-device path.
 """
 
 import contextlib
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from mqslam_tpu_torch.ba import factors
 from mqslam_tpu_torch.ba.banded import (BandedLayout, _Hooks, banded_hooks,
-                                        build_banded_layout, pack_banded)
+                                        banded_hooks_sharded,
+                                        build_banded_layout, pack_banded,
+                                        pack_banded_sharded,
+                                        ShardedBandedLayout)
 from mqslam_tpu_torch.ba.packed import (apply_chunked, build_packed_layout,
-                                        PackedLayout)
+                                        PackedLayout, ShardedPackedLayout)
 from mqslam_tpu_torch.ba.problem import BAProblem, BAVariables
 from mqslam_tpu_torch.core import so3
 from mqslam_tpu_torch.core.smallmat import matmul_small, matvec_small
@@ -61,9 +72,6 @@ __all__ = ["dense_method_ok", "Linearization", "linearize", "solve_delta",
 # inside 2^31.
 _DENSE_MAX_POSE_DIM = 4096
 _DENSE_MAX_FP = 8 * 1024 * 1024
-
-_ITEM_12 = ("(a sharded solve) waits for ROADMAP Queue 1 item 12 "
-            "(multi-agent: the sharded layouts and solves)")
 
 # The CG loop reads its stop flag on the host every CG_CHECK_EVERY
 # iterations; in between, iterations past the stop are computed and frozen
@@ -116,6 +124,17 @@ def _exact_f32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _psum(x, group):
+    """``jax.lax.psum`` over ``group``: every rank's ``x`` summed, in place
+    in ``x`` and returned; ``x`` itself when ``group`` is None.  ``x`` must
+    be a fresh partial that nothing else reads.  A group of one rank still
+    runs the collective."""
+    if group is None:
+        return x
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
 
 
 def _seg(vals, idx, n):
@@ -204,22 +223,24 @@ def _residuals(problem: BAProblem, v: BAVariables):
     return r_obs, r_odo, r_pp, r_qp
 
 
-def compute_cost(problem: BAProblem, v: BAVariables, axis_name=None):
+def compute_cost(problem: BAProblem, v: BAVariables, group=None):
     """0.5 * the sum of squared whitened residuals (a 0-dim tensor on the
-    problem's device; reading it is the caller's host sync)."""
-    if axis_name is not None:
-        raise ValueError(f"axis_name {_ITEM_12}")
+    problem's device; reading it is the caller's host sync).  With
+    ``group`` (the JAX package's ``axis_name``) the observation rows are
+    this rank's and their partial sum is reduced over the group."""
     r_obs, r_odo, r_pp, r_qp = _residuals(problem, v)
-    return 0.5 * torch.sum(r_obs ** 2) + 0.5 * (
+    c_obs = _psum(0.5 * torch.sum(r_obs ** 2), group)
+    return c_obs + 0.5 * (
         torch.sum(r_odo ** 2) + torch.sum(r_pp ** 2) + torch.sum(r_qp ** 2))
 
 
 def linearize(problem: BAProblem, v: BAVariables,
-              axis_name=None) -> Linearization:
+              group=None) -> Linearization:
     """Linearize all factors: residuals, Jacobians, gradients, the point
-    blocks Hpp and the pose diagonal."""
-    if axis_name is not None:
-        raise ValueError(f"axis_name {_ITEM_12}")
+    blocks Hpp and the pose diagonal.  With ``group`` (the JAX package's
+    ``axis_name``) the observation rows are this rank's: their cost,
+    gradients, point blocks and pose diagonal are partial sums, reduced over
+    the group in one all-reduce; odometry and prior terms are replicated."""
     F = problem.n_poses
     P = problem.n_points
     p6 = _pose6(v)
@@ -243,25 +264,34 @@ def linearize(problem: BAProblem, v: BAVariables,
     r_qp = (v.points[problem.prior_point_idx]
             - problem.prior_point_xyz) * inv_qp[:, None]
 
-    cost = 0.5 * torch.sum(r_obs ** 2) + 0.5 * (
+    # observation partial aggregates (this rank's rows under a group),
+    # reduced in one all-reduce of their concatenation
+    obs_parts = (0.5 * torch.sum(r_obs ** 2)[None],
+                 _seg(_JTr(Jp6, r_obs), problem.obs_pose, F),
+                 _seg(_JTr(Jpt, r_obs), problem.obs_point, P),
+                 _seg(_JTJ(Jpt), problem.obs_point, P),
+                 _seg(_JTJ_diag(Jp6), problem.obs_pose, F))
+    if group is not None:
+        flat = _psum(torch.cat([x.reshape(-1) for x in obs_parts]), group)
+        obs_parts = [y.reshape(x.shape) for x, y in zip(
+            obs_parts, flat.split([x.numel() for x in obs_parts]))]
+    cost_obs, g_pose_obs, g_point_obs, Hpp_obs, diag_obs = obs_parts
+
+    cost = cost_obs[0] + 0.5 * (
         torch.sum(r_odo ** 2) + torch.sum(r_pp ** 2) + torch.sum(r_qp ** 2))
 
     # gradients g = J^T r
-    g_pose = _seg(_JTr(Jp6, r_obs), problem.obs_pose, F)
-    g_pose = g_pose + _seg(_JTr(Jof, r_odo), problem.odo_from, F)
+    g_pose = g_pose_obs + _seg(_JTr(Jof, r_odo), problem.odo_from, F)
     g_pose = g_pose + _seg(_JTr(Jot, r_odo), problem.odo_to, F)
     g_pose = g_pose + _seg(_JTr(Jpp, r_pp), problem.prior_pose_idx, F)
-    g_point = _seg(_JTr(Jpt, r_obs), problem.obs_point, P)
-    g_point = g_point + _seg(r_qp * inv_qp[:, None],
-                             problem.prior_point_idx, P)
+    g_point = g_point_obs + _seg(r_qp * inv_qp[:, None],
+                                 problem.prior_point_idx, P)
 
     # point blocks Hpp (point priors included) and the pose diagonal
     eye3 = torch.eye(3, dtype=r_obs.dtype, device=r_obs.device)
-    Hpp = _seg(_JTJ(Jpt), problem.obs_point, P)
-    Hpp = Hpp + _seg((inv_qp ** 2)[:, None, None] * eye3[None],
-                     problem.prior_point_idx, P)
-    diag_pose = _seg(_JTJ_diag(Jp6), problem.obs_pose, F)
-    diag_pose = diag_pose + _seg(_JTJ_diag(Jof), problem.odo_from, F)
+    Hpp = Hpp_obs + _seg((inv_qp ** 2)[:, None, None] * eye3[None],
+                         problem.prior_point_idx, P)
+    diag_pose = diag_obs + _seg(_JTJ_diag(Jof), problem.odo_from, F)
     diag_pose = diag_pose + _seg(_JTJ_diag(Jot), problem.odo_to, F)
     diag_pose = diag_pose + _seg(_JTJ_diag(Jpp), problem.prior_pose_idx, F)
 
@@ -276,17 +306,18 @@ def linearize(problem: BAProblem, v: BAVariables,
         point_free=point_free)
 
 
-def _w_t_apply(problem: BAProblem, lin: Linearization, v):
-    """v [F, 6] -> Hpc v = W^T v [P, 3]."""
+def _w_t_apply(problem: BAProblem, lin: Linearization, v, group=None):
+    """v [F, 6] -> Hpc v = W^T v [P, 3] (summed over ``group``)."""
     z = _Jv(lin.J_obs_pose, v[problem.obs_pose])
-    return _seg(_JTr(lin.J_obs_point, z), problem.obs_point,
-                problem.n_points)
+    return _psum(_seg(_JTr(lin.J_obs_point, z), problem.obs_point,
+                      problem.n_points), group)
 
 
-def _w_apply(problem: BAProblem, lin: Linearization, u):
-    """u [P, 3] -> Hcp u = W u [F, 6]."""
+def _w_apply(problem: BAProblem, lin: Linearization, u, group=None):
+    """u [P, 3] -> Hcp u = W u [F, 6] (summed over ``group``)."""
     w = _Jv(lin.J_obs_point, u[problem.obs_point])
-    return _seg(_JTr(lin.J_obs_pose, w), problem.obs_pose, problem.n_poses)
+    return _psum(_seg(_JTr(lin.J_obs_pose, w), problem.obs_pose,
+                      problem.n_poses), group)
 
 
 def _hpp_damped(lin: Linearization, lam):
@@ -314,15 +345,17 @@ def _hcc_rest(problem: BAProblem, lin: Linearization, v):
     return out + _seg(_JTr(lin.J_pp, yp), problem.prior_pose_idx, F)
 
 
-def _hcc_obs(problem: BAProblem, lin: Linearization, v):
-    """v [F, 6] -> projection part of Hcc v (COO)."""
+def _hcc_obs(problem: BAProblem, lin: Linearization, v, group=None):
+    """v [F, 6] -> projection part of Hcc v (COO; summed over ``group``)."""
     y = _Jv(lin.J_obs_pose, v[problem.obs_pose])
-    return _seg(_JTr(lin.J_obs_pose, y), problem.obs_pose, problem.n_poses)
+    return _psum(_seg(_JTr(lin.J_obs_pose, y), problem.obs_pose,
+                      problem.n_poses), group)
 
 
-def _hcc_apply(problem: BAProblem, lin: Linearization, v):
-    """v [F, 6] -> Hcc v (projection + odometry + prior parts, undamped)."""
-    return _hcc_obs(problem, lin, v) + _hcc_rest(problem, lin, v)
+def _hcc_apply(problem: BAProblem, lin: Linearization, v, group=None):
+    """v [F, 6] -> Hcc v (projection + odometry + prior parts, undamped);
+    the projection part summed over ``group``."""
+    return _hcc_obs(problem, lin, v, group) + _hcc_rest(problem, lin, v)
 
 
 def _pad0(a):
@@ -347,14 +380,22 @@ def pack_jacobians(lin: Linearization, layout: PackedLayout):
             G)
 
 
-def pack_for_layout(lin: Linearization, layout):
-    """The per-linearization tables of whichever CG layout is in play: the
-    banded grid's (``banded.pack_banded``) or the packed layout's
+def _pack_dispatch(lin: Linearization, layout, group=None):
+    """The per-linearization tables of whichever CG layout is in play: a
+    rank's sharded banded block (``banded.pack_banded_sharded``, its Grams
+    summed over ``group``), the banded grid's (``banded.pack_banded``) or
+    the packed layout's, single-device or one rank's sharded block
     (``pack_jacobians``)."""
-    if isinstance(layout, BandedLayout):
-        with _exact_f32():
+    with _exact_f32():
+        if isinstance(layout, ShardedBandedLayout):
+            return pack_banded_sharded(lin, layout, group)
+        if isinstance(layout, BandedLayout):
             return pack_banded(lin, layout)
     return pack_jacobians(lin, layout)
+
+
+# the JAX package's name for its jitted ``_pack_dispatch``
+pack_for_layout = _pack_dispatch
 
 
 def _packed_ops(problem: BAProblem, lin: Linearization, layout: PackedLayout,
@@ -398,6 +439,50 @@ def _packed_ops(problem: BAProblem, lin: Linearization, layout: PackedLayout,
     return hcc_obs_v, wt_from_v, w_apply, precond_obs_blocks
 
 
+def _packed_ops_rows(problem: BAProblem, lin: Linearization, layout,
+                     packedJ=None):
+    """Packed applies for one rank's block of a ``ShardedPackedLayout``
+    (``packed.layout_shard``).
+
+    ``_packed_ops``' dense math, but the tables cover only this rank's Fd
+    poses / Pd landmarks: replicated [F, 6] / [P, 3] vectors are gathered
+    down through the row maps, partial results scatter-add back through
+    them ([Fd, 6] rows, 2-3 orders fewer than the COO form's
+    per-observation scatters).  Outputs are PARTIAL sums: the caller
+    reduces them over the group.  Also valid on one device (no
+    reduction).  Call them with TF32 off."""
+    F = problem.n_poses
+    P = problem.n_points
+    Jp_f, Jt_f, Jt_p, Jp_p, G = (pack_jacobians(lin, layout)
+                                 if packedJ is None else packedJ)
+
+    def scat_f(part):                            # [Fd, x] -> [F, x] partial
+        return _seg(part, layout.rows_f, F + 1)[:F]
+
+    def scat_p(part):                            # [Pd, x] -> [P, x] partial
+        return _seg(part, layout.rows_p, P + 1)[:P]
+
+    def hcc_obs_v(v):                            # [F, 6] -> [F, 6] partial
+        vloc = _pad0(v)[layout.rows_f]           # [Fd, 6] (local Gram)
+        return scat_f(torch.bmm(G, vloc[:, :, None])[:, :, 0])
+
+    def wt_from_v(v):                            # [F, 6] -> [P, 3]
+        z = torch.einsum("pkcx,pkx->pkc", Jp_p, _pad0(v)[layout.fid_p])
+        return scat_p(torch.einsum("pkcy,pkc->py", Jt_p, z))
+
+    def w_apply(u):                              # [P, 3] -> [F, 6]
+        w = torch.einsum("fkcy,fky->fkc", Jt_f, _pad0(u)[layout.pid_f])
+        return scat_f(torch.einsum("fkcx,fkc->fx", Jp_f, w))
+
+    def precond_obs_blocks(Hpp_inv):             # -> [F, 6, 6]
+        Hj = _pad0(Hpp_inv)[layout.pid_f]                    # [Fd,Kf,3,3]
+        A = torch.sum(Jp_f[:, :, :, :, None] * Jt_f[:, :, :, None, :],
+                      dim=2)                                 # [Fd,Kf,6,3]
+        return scat_f(G - torch.sum(_aha(A, Hj), dim=1))  # JJ == local Gram
+
+    return hcc_obs_v, wt_from_v, w_apply, precond_obs_blocks
+
+
 def _aha(A, Hj):
     """A Hj A^T for W blocks A [..., 6, 3] and point blocks Hj [..., 3, 3],
     as broadcast + sum in the JAX package's order: Hj is ill-conditioned
@@ -419,29 +504,49 @@ def _coo_precond_obs_blocks(problem: BAProblem, lin: Linearization, Hpp_inv):
                 problem.n_poses)
 
 
-def _layout_hooks(problem, lin, layout, packedJ, hpp_solve, Hpp_inv):
+def _layout_hooks(problem, lin, layout, packedJ, hpp_solve, Hpp_inv,
+                  group=None):
     """(hcc_obs, corr, w_full, wt_full, pre) of the reduced operator over
     ``layout``: the Hcc projection part, W M W^T, W, W^T and the
     observation part of the preconditioner blocks, where M is the damped
-    point-block inverse.  Call them with TF32 off."""
+    point-block inverse; each summed over ``group`` where it has one.
+    Call them with TF32 off."""
+    if isinstance(layout, ShardedBandedLayout):
+        if group is None and layout.Fb != layout.F:
+            raise ValueError("a block of a sharded banded layout of more "
+                             "than one rank needs its process group")
+        return banded_hooks_sharded(problem, lin, layout, packedJ, Hpp_inv,
+                                    group)
+    if group is not None and isinstance(layout, (BandedLayout,
+                                                 PackedLayout)):
+        raise ValueError(
+            f"a {type(layout).__name__} is single-device; shard with "
+            "ba.packed.build_sharded_packed_layout or ba.banded."
+            "build_sharded_banded_layout for a solve over a group")
     if isinstance(layout, BandedLayout):
         return banded_hooks(problem, lin, layout, packedJ, Hpp_inv)
     if layout is not None:
-        hcc, wt_v, w_ap, pre_obs = _packed_ops(problem, lin, layout, packedJ)
+        ops = (_packed_ops_rows if isinstance(layout, ShardedPackedLayout)
+               else _packed_ops)
+        hcc, wt_v, w_ap, pre_obs = ops(problem, lin, layout, packedJ)
+        ps = lambda f: (lambda x: _psum(f(x), group))
+        hcc, wt_v, w_ap = ps(hcc), ps(wt_v), ps(w_ap)
         return _Hooks(hcc=hcc, corr=lambda v: w_ap(hpp_solve(wt_v(v))),
                       w_full=w_ap, wt_full=wt_v,
-                      pre=lambda: pre_obs(Hpp_inv))
+                      pre=lambda: _psum(pre_obs(Hpp_inv), group))
     return _Hooks(
-        hcc=lambda v: _hcc_obs(problem, lin, v),
+        hcc=lambda v: _hcc_obs(problem, lin, v, group),
         corr=lambda v: _w_apply(problem, lin,
-                                hpp_solve(_w_t_apply(problem, lin, v))),
-        w_full=lambda t: _w_apply(problem, lin, t),
-        wt_full=lambda v: _w_t_apply(problem, lin, v),
-        pre=lambda: _coo_precond_obs_blocks(problem, lin, Hpp_inv))
+                                hpp_solve(_w_t_apply(problem, lin, v,
+                                                     group)), group),
+        w_full=lambda t: _w_apply(problem, lin, t, group),
+        wt_full=lambda v: _w_t_apply(problem, lin, v, group),
+        pre=lambda: _psum(_coo_precond_obs_blocks(problem, lin, Hpp_inv),
+                          group))
 
 
 def solve_delta(problem: BAProblem, lin: Linearization, lam,
-                cg_iters: int = 100, cg_tol: float = 1e-6, axis_name=None,
+                cg_iters: int = 100, cg_tol: float = 1e-6, group=None,
                 layout=None, packedJ=None):
     """Solve the damped normal equations by matrix-free Schur PCG.
 
@@ -462,9 +567,15 @@ def solve_delta(problem: BAProblem, lin: Linearization, lam,
     the device: an iteration past the stop is computed and discarded by
     ``torch.where``, so x, r and the count equal those of a loop that
     stopped, and the host reads the stop flag every ``CG_CHECK_EVERY``
-    iterations only."""
-    if axis_name is not None:
-        raise ValueError(f"axis_name {_ITEM_12}")
+    iterations only.
+
+    ``group`` (the JAX package's ``axis_name``): the problem's observation
+    rows and ``lin`` are this rank's; ``layout`` None (COO) or this rank's
+    block of a ``ShardedPackedLayout`` / ``ShardedBandedLayout``
+    (``packed.layout_shard``); every observation sum is reduced over the
+    group (the rhs, each matvec, the preconditioner blocks and the
+    back-substitution), so every rank iterates on the same replicated
+    vectors and stops at the same iteration."""
     F = problem.n_poses
     dt = lin.g_pose.dtype
     pose_mask = lin.pose_free[:, None].to(dt)
@@ -474,7 +585,7 @@ def solve_delta(problem: BAProblem, lin: Linearization, lam,
 
     with _exact_f32():
         hooks = _layout_hooks(problem, lin, layout, packedJ, hpp_solve,
-                              Hpp_inv)
+                              Hpp_inv, group)
 
         def B_apply(vv):
             vv = vv * pose_mask

@@ -4,12 +4,16 @@
 
     JAX_PLATFORMS=cpu python3 ref_ba_scale_jax.py
 
-1. ``lm_solve(method="cg", layout="auto", max_iters=20, cg_iters=300)`` on
-   the corridor problem at the JAX bench's production size (2048 poses, 24
-   landmarks a frame): the final cost against the cost at the truth, and
-   the mean camera-centre error against the initial one; then 20 more LM
-   iterations at 1000 CG iterations from there (``longer``), which show how
-   flat the valley around the optimum is.
+1. ``lm_solve(method="cg", layout="auto", max_iters=20, cg_iters=300,
+   lam0=1e-4)`` on the corridor problem at the JAX bench's production size
+   (2048 poses, 24 landmarks a frame): the final cost against the cost at
+   the truth, and the mean camera-centre error against the initial one;
+   then 20 more LM iterations at 1000 CG iterations from there
+   (``longer``), which show how flat the valley around the optimum is.
+   LM starts at lam0 = 1e-4: below it the corridor's first damped system
+   is indefinite in float32, truncated CG returns a meaningless step, and
+   whether LM accepts it is roundoff (on the card, where sums are atomic,
+   the run then differs from run to run).
 2. ``incremental_solve`` (what ``ba_run`` modes 1 and 2 run) over the whole
    schedule of ``artifacts/icl_r5b`` (200 poses, 798 landmarks): the
    largest and the mean distance of its camera centres to the checked-in
@@ -35,7 +39,7 @@ def corridor():
                                                        points_per_frame=24)
     t0 = time.perf_counter()
     v, hist = solver.lm_solve(prob, method="cg", layout="auto", max_iters=20,
-                              cg_iters=300)
+                              cg_iters=300, lam0=1e-4)
     seconds = time.perf_counter() - t0
     err = lambda p: float(np.linalg.norm(
         np.asarray(p) - np.asarray(v_true.pose_t), axis=1).mean())

@@ -26,7 +26,7 @@ from mqslam_tpu.ba import polish64 as jpol, problem as jp, solver as js
 from mqslam_tpu.ba import synthetic as jsyn, validate as jval
 from mqslam_tpu.io import ba_info as jio
 from mqslam_tpu_torch import convert
-from mqslam_tpu_torch.ba import polish64 as tpol, problem as tp
+from mqslam_tpu_torch.ba import packed as tpk, polish64 as tpol, problem as tp
 from mqslam_tpu_torch.ba import solver as ts, synthetic as tsyn
 from mqslam_tpu_torch.ba import validate as tval
 from mqslam_tpu_torch.io import ba_info as tio
@@ -254,17 +254,19 @@ def test_failed_factorization_is_a_rejected_step(problems, monkeypatch):
 
 
 def test_refusals(problems):
-    """The sharded solves (``axis_name``) are refused, naming ROADMAP item
-    12; a problem past the dense gates now takes the CG path; an unknown
-    method or layout name is refused."""
+    """The JAX package's ``axis_name`` is the port's ``group``: a
+    single-device layout in a solve over a group is refused (it holds
+    every rank's rows), before any collective; a problem past the dense
+    gates takes the CG path; an unknown method or layout name is
+    refused."""
     T = problems["cube"]["T"]
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(TypeError, match="axis_name"):
         ts.linearize(T, T.init, axis_name="x")
-    with pytest.raises(ValueError, match="item 12"):
-        ts.compute_cost(T, T.init, axis_name="x")
     lin = ts.linearize(T, T.init)
-    with pytest.raises(ValueError, match="item 12"):
-        ts.solve_delta(T, lin, 1e-3, axis_name="x")
+    ids = (T.obs_pose, T.obs_point, T.obs_valid, T.n_poses, T.n_points)
+    with pytest.raises(ValueError, match="single-device"):
+        ts.solve_delta(T, lin, 1e-3, group="group",
+                       layout=tpk.build_packed_layout(*ids))
     for kw in ({"method": "qr"}, {"method": "cg", "layout": "packed"}):
         with pytest.raises(ValueError, match="'auto'"):
             ts.lm_solve(T, **kw)

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports torch, never jax, and nothing of the
-JAX package; its entry points run on a CUDA device unless the caller asks
-for the CPU; a kernel wrapper takes its plain version only for CPU tensors.
+"""The port stands alone: it imports torch, never jax, nothing of the JAX
+package and not OpenCV (the card's machine has none); its entry points run
+on a CUDA device unless the caller asks for the CPU; a kernel wrapper takes
+its plain version only for CPU tensors.
 """
 
 import os
@@ -42,7 +43,10 @@ def test_slice_modules_present():
               "ba.solver", "ba.polish64", "ba.validate", "ba.synthetic",
               "ba.packed", "ba.banded", "ba.incremental", "cli.ba_run", "eval", "eval.associate", "eval.ate",
               "eval.rpe", "eval.alignment", "cli.evaluate_ate",
-              "cli.evaluate_rpe", "cli.align_traj"):
+              "cli.evaluate_rpe", "cli.align_traj", "multiagent",
+              "multiagent.merge", "multiagent.fleet_dump", "parallel",
+              "parallel.sharded_ba", "parallel.multihost", "parallel.fleet",
+              "parallel.dryrun", "cli.collab_demo"):
         assert "mqslam_tpu_torch." + m in mods, m
     for f in ("lk_level.cu", "lk_strip.cu", "lk_track.cuh", "extract.cu",
               "lk_iterate.cu"):
@@ -52,6 +56,7 @@ def test_slice_modules_present():
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    """Nor OpenCV."""
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"     # whatever a site hook preloaded
@@ -59,7 +64,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in set(sys.modules) - before if k == 'jax' or "
         "k.startswith('jax.') or k == 'jaxlib' or k == 'mqslam_tpu' or "
-        "k.startswith('mqslam_tpu.'))\n"
+        "k.startswith('mqslam_tpu.') or k == 'cv2' or "
+        "k.startswith('cv2.'))\n"
         "print('BAD', bad)\n")
     # a fresh interpreter without inherited module search paths
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -72,6 +78,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
 def test_sources_name_neither_jax_nor_the_jax_package():
     pat = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|mqslam_tpu)(\.|\s|$)", re.M)
+    # OpenCV: never at a module's top level; inside a function only in the
+    # bench, whose host baseline is OpenCV's ladder where it imports
+    cv_top = re.compile(r"^(import|from)\s+cv2(\.|\s|$)", re.M)
+    cv_any = re.compile(r"^\s*(import|from)\s+cv2(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, fs in os.walk(PKG):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
@@ -82,6 +92,9 @@ def test_sources_name_neither_jax_nor_the_jax_package():
         assert not pat.search(src), path
         assert "import_module(\"jax" not in src and \
             "__import__(\"jax" not in src, path
+        assert not cv_top.search(src), path
+        if os.path.basename(path) != "bench.py":
+            assert not cv_any.search(src), path
 
 
 @pytest.fixture
@@ -116,6 +129,30 @@ def test_entry_points_need_a_cuda_device_by_default(no_cuda):
         with pytest.raises(RuntimeError, match="CUDA"):
             build(*ids)             # NumPy ids: the tables go to the card
     assert mqslam_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_multi_agent_entry_points_need_a_cuda_device_by_default(no_cuda):
+    """The slice's entry points (the fleet runner, the sharded layout
+    builders on NumPy ids, the collaborative demo) take the CUDA device
+    unless asked for the CPU, and never fall back."""
+    from mqslam_tpu_torch.ba import banded, packed
+    from mqslam_tpu_torch.cli import collab_demo
+    from mqslam_tpu_torch.parallel import fleet
+    cal = convert.cal_from_numpy([300.0, 300.0, 0, 160, 120, 0, 0, 0, 0],
+                                 device="cpu")
+    cfg = trk.TrackerConfig(max_tracks=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fleet.make_fleet_runner(cal, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fleet.make_fleet_runner(cal, cfg, shard=(0, 2))
+    fleet.make_fleet_runner(cal, cfg, shard=(0, 2), device="cpu")
+    ids = (np.arange(16) % 8, np.arange(16) % 3, np.ones(16, bool), 8, 3, 2)
+    for build in (packed.build_sharded_packed_layout,
+                  banded.build_sharded_banded_layout):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(*ids)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        collab_demo.run(n_frames=2, verbose=False)
 
 
 def _level_args(device="cpu"):
