@@ -72,6 +72,16 @@ dump, and nothing else; imports only ``mqslam_tpu_torch``.  It
      corridor at F = 2048 over one-rank blocks of the sharded packed and
      banded layouts (one sharded LM iteration against the single-device
      one; ms per CG iteration with and without the ``all_reduce``).
+ 12. drives the loop-closure slice (``loop_closure``): ``loop_demo`` at its
+     defaults (240 frames, 320x240, loop closure off and on; K2's launches
+     counted) with >= 1 verified edge and ATE no worse with loop closure;
+     card against CPU on the keyframe-DB scoring against a full 256 x 384
+     DB (integers equal; the bit-matmul Hamming form timed against XOR +
+     popcount), ``brief_describe`` on a demo frame and ``pgo_solve`` on
+     the bench's 512-pose circuit; a run checkpointed at frame 8 and
+     resumed against the uninterrupted run; the bench's loop-closure
+     section.  The ``kernels`` line comes last but one: each kernel's
+     launches summed over the paths it runs on, path by path beside.
 
 Every phase must pass; the last line of the output is
 ``{"ok": true, "device": {...}}``.  One JSON object per line before it.
@@ -2333,6 +2343,239 @@ def phase_multi_agent(cal, config, states, imgs, seqs, device):
     return rec, k1, k2
 
 
+# ------------------------------------------------------------ loop closure --
+
+LC_CHECKPOINT = dict(n_frames=16, size=(320, 240), f=250.0, plane_z=4.0,
+                     seed=7, ang_rate=0.03, vel=(0.5, 0.05, 0.1))
+LC_CUT = 8                    # the checkpointed run stops after this frame
+
+
+def hamming_popcount(a, b):
+    """Hamming distances [..., N, M] int32 by the other exact form: XOR of
+    the descriptors as int64 words, SWAR popcount (torch has no popcount
+    op).  Timed here against ``matching.pairwise_hamming``'s bit matmul,
+    the form on the path."""
+    aw = a.contiguous().view(torch.int64)
+    bw = b.contiguous().view(torch.int64)
+    x = aw[..., :, None, :] ^ bw[..., None, :, :]
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    x = ((x * 0x0101010101010101) >> 56) & 0xFF
+    return x.sum(dim=-1, dtype=torch.int32)
+
+
+def demo_frame0(n_frames=240, size=(320, 240), f=280.0, plane_z=4.0,
+                seed=5):
+    """``loop_demo.run``'s first frame at its defaults, noise included (the
+    noise of frame 0 is the first H x W of its draws)."""
+    from mqslam_tpu_torch.cli import loop_demo
+    from mqslam_tpu_torch.frontend import synthetic
+    rng = np.random.RandomState(seed)
+    tex = synthetic.make_texture(rng)
+    gt = loop_demo.circuit_trajectory(n_frames)
+    img = synthetic.render_plane_sequence(gt[:1], tex, size=size, f=f,
+                                          plane_z=plane_z)
+    img = img + rng.randn(*img.shape) * 3.0
+    return np.clip(img, 0, 255).astype(np.float32)[0]
+
+
+def phase_loop_closure(device):
+    """The loop-closure slice on the card.  (a) ``loop_demo.run()`` at its
+    defaults (240 frames, 320x240, 192 tracks, loop closure off and on; K2's
+    launches counted): >= 1 verified edge, ATE on <= ATE off, >= 90 % of the
+    frames accepted in each run; the seconds of each run and of
+    ``_pgo_correct``.  (b) Card against CPU on the same inputs: the
+    keyframe-DB scoring of one query against the full 256 x 384 DB (counts,
+    ``i1``, ``good`` equal; the Hamming forms timed: the bit matmul on the
+    path, the XOR + popcount form beside it), ``brief_describe`` on the
+    demo's first frame at 192 corners (theta 1e-4 rad, ``ok`` equal,
+    descriptors <= 2 bits apart on >= 99 % of the valid keypoints),
+    ``pgo_solve`` on the bench's 512-pose circuit (poses 1e-3; the cost
+    1e-4 relative after 1 iteration, and after 20 both at float32's floor,
+    below 1e-8 of the initial cost: the circuit's measurements are
+    consistent, so the optimum's cost is roundoff).  (c) Checkpoint:
+    ``run_frontend`` at 320x240 over 16 frames, run twice uninterrupted,
+    then cut at frame 8 and resumed: ``accepted`` equal and poses equal
+    (within the gap between the two uninterrupted runs, should the card's
+    runs differ); save and load timed.  (d) The bench's loop-closure
+    section once.  Returns (record, K2 launches)."""
+    from mqslam_tpu_torch import bench
+    from mqslam_tpu_torch.ba import posegraph as pg
+    from mqslam_tpu_torch.cli import loop_demo
+    from mqslam_tpu_torch.frontend import checkpoint as ckpt
+    from mqslam_tpu_torch.frontend import loopclosure as lc
+    from mqslam_tpu_torch.frontend import runner, synthetic
+    from mqslam_tpu_torch.frontend import tracker as trk
+    from mqslam_tpu_torch.ops import features, lk_fused, matching, orb
+
+    t_phase = time.perf_counter()
+    rec = {}
+
+    # (a) the demo at its defaults
+    lk_fused.launches = 0
+    ((ate_off, ate_on, n_edges, results), pgo), runs = timed_calls(
+        runner, "run_frontend", lambda: timed_calls(
+            runner, "_pgo_correct",
+            lambda: loop_demo.run(verbose=False, device=device)))
+    k2 = lk_fused.launches
+    n = len(results[True].accepted)
+    accepted = {str(k): sum(1 for a in r.accepted if a > 0)
+                for k, r in results.items()}
+    expect = 2 * trk.TrackerConfig().lk_levels * (n - 1)   # off and on
+    rec["demo"] = dict(
+        frames=n, size=[320, 240], max_tracks=192, ate_off_m=ate_off,
+        ate_on_m=ate_on, loop_edges=[list(e[:2]) for e in
+                                     results[True].loop_edges],
+        accepted=accepted,
+        keyframes={str(k): r.n_keyframes for k, r in results.items()},
+        seconds=[s for s, _ in runs], pgo_correct_seconds=[s for s, _ in pgo],
+        launches={"lk_strip": k2})
+    log(f"loop_closure: demo {rec['demo']}")
+    require(k2 == expect, f"loop_closure: lk_strip launched {k2} times on "
+            f"loop_demo, expected {expect}")
+    require(n_edges >= 1 and ate_on <= ate_off,
+            f"loop_closure: demo {n_edges} edges, ATE {ate_off} -> {ate_on}")
+    require(min(accepted.values()) >= 0.9 * n,
+            f"loop_closure: demo accepted {accepted} of {n} (< 90 %)")
+
+    # (b) card against CPU at full size
+    inputs = {d: bench.loopclosure_inputs(device=d) for d in ("cpu", device)}
+    db, q_desc, q_valid, g = inputs[device]
+    with torch.no_grad():
+        # the bench's random query scores 0 everywhere; a second query,
+        # keyframe 17's descriptors with one bit flipped, matches there
+        got = {}
+        for d, (db_d, q_d, v_d, _) in inputs.items():
+            twin = db_d.desc[17].clone()
+            twin[:, 0] ^= 1
+            got[d] = [[x.cpu() for x in lc.loop_scores(
+                db_d, q, v_d, cur_index=db_d.desc.shape[0])]
+                for q in (q_d, twin)]
+        for k in range(2):
+            for name, a, b in zip(("scores", "i1", "good"), got["cpu"][k],
+                                  got[device][k]):
+                require(torch.equal(a, b), f"loop_closure: loop_scores "
+                        f"{name} differs between card and CPU (query {k})")
+        require(int(got["cpu"][1][0][17]) >= 300,
+                f"loop_closure: the planted twin scores "
+                f"{int(got['cpu'][1][0][17])}")
+        d_mm = matching.pairwise_hamming(q_desc, db.desc)
+        d_pc = hamming_popcount(q_desc, db.desc)
+        require(torch.equal(d_mm, d_pc), "loop_closure: the two Hamming "
+                "forms disagree on the card")
+        hamming = dict(
+            bit_matmul_ms=time_ms(lambda: matching.pairwise_hamming(
+                q_desc, db.desc), reps=10),
+            xor_popcount_ms=time_ms(lambda: hamming_popcount(
+                q_desc, db.desc), reps=5, rounds=3, warmup=1),
+            loop_scores_ms=time_ms(lambda: lc.loop_scores(
+                db, q_desc, q_valid, cur_index=256), reps=10),
+            on_path="bit_matmul",
+            bit_matmul_gflop=2 * 384 * 256 * 384 * 256 / 1e9)
+        del d_mm, d_pc
+        rec["db_scores"] = dict(
+            N=256, K=384, max_score=int(got["cpu"][0][0].max()),
+            twin_score=int(got["cpu"][1][0][17]), equal=True, **hamming)
+        log(f"loop_closure: DB scoring {rec['db_scores']}")
+
+        img = demo_frame0()
+        uv, valid = features.detect_corners(torch.as_tensor(img),
+                                            max_corners=192, cell=12)
+        desc = {}
+        for d in ("cpu", device):
+            desc[d] = [x.cpu() for x in orb.brief_describe(
+                torch.as_tensor(img).to(d), uv.to(d), valid.to(d))]
+        (dc, tc, okc), (dg, tg, okg) = desc["cpu"], desc[device]
+        require(torch.equal(okc, okg) and int(okg.sum()) >= 100,
+                f"loop_closure: brief_describe ok differs / {int(okg.sum())}")
+        d_theta = float((tc - tg)[okg].abs().max())
+        flips = np.unpackbits((dc ^ dg).numpy()[okg.numpy()], axis=1).sum(1)
+        rec["brief_describe"] = dict(
+            keypoints=int(uv.shape[0]), valid=int(okg.sum()),
+            theta_max_abs_diff=d_theta, bits_apart_max=int(flips.max()),
+            within_2_bits=float((flips <= 2).mean()),
+            ms=time_ms(lambda: orb.brief_describe(
+                torch.as_tensor(img, device=device), uv.to(device),
+                valid.to(device)), reps=10))
+        log(f"loop_closure: brief_describe {rec['brief_describe']}")
+        require(d_theta <= 1e-4 and (flips <= 2).mean() >= 0.99,
+                f"loop_closure: brief_describe {rec['brief_describe']}")
+
+        # the circuit's measurements are consistent: 20 iterations end at
+        # float32's floor (~1e-6, from 682), where a relative difference
+        # of the cost is roundoff; the cost is held relative after 1
+        # iteration, and at 20 both must sit at the floor
+        sol = {d: {k: [x.cpu() for x in pg.pgo_solve(inputs[d][3], iters=k)]
+                   for k in (1, 20)} for d in ("cpu", device)}
+        cost0 = float(pg.pgo_cost(g))
+        rel = {k: abs(float(sol[device][k][1]) / float(sol["cpu"][k][1])
+                      - 1) for k in (1, 20)}
+        d_pose = max(float((sol[device][k][0] - sol["cpu"][k][0]).abs()
+                           .max()) for k in (1, 20))
+        final = [float(sol[d][20][1]) for d in (device, "cpu")]
+        rec["pgo_solve"] = dict(
+            poses=int(g.poses.shape[0]), edges=int(g.edge_i.shape[0]),
+            cost0=cost0, cost_1_iter=float(sol[device][1][1]),
+            cost_1_iter_rel_diff=rel[1], cost_20_iters_card=final[0],
+            cost_20_iters_cpu=final[1], cost_20_iters_rel_diff=rel[20],
+            pose_max_abs_diff=d_pose)
+        log(f"loop_closure: pgo_solve {rec['pgo_solve']}")
+        require(rel[1] <= 1e-4 and d_pose <= 1e-3
+                and max(final) <= 1e-8 * cost0,
+                f"loop_closure: pgo_solve {rec['pgo_solve']}")
+    del inputs, db, q_desc, q_valid, g, got
+
+    # (c) checkpoint: cut at frame 8, resume, against the uninterrupted run
+    seq = synthetic.build_sequence(**LC_CHECKPOINT)
+    imgs, P_gt = seq[0], seq[1]
+    cal = calibration(seq, device)
+    uv0, objp = init_correspondences(seq, device, n=64)
+    config = trk.TrackerConfig(max_tracks=128, target_keypoints=100)
+
+    def run(n_img, **kw):
+        return runner.run_frontend(
+            list(imgs[:n_img]), cal, config, uv0, objp,
+            generator=torch.Generator(device=device).manual_seed(0),
+            device=device, **kw)
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "ck.npz")
+        full = [run(len(imgs)) for _ in range(2)]
+        _, saves = timed_calls(ckpt, "save_checkpoint", lambda: run(
+            LC_CUT + 1, checkpoint_every=LC_CUT, checkpoint_path=ck))
+        ck_bytes = os.path.getsize(ck)
+        resumed, loads = timed_calls(ckpt, "load_checkpoint", lambda: run(
+            len(imgs), resume_from=ck))
+    pose_gap = lambda a, b: max(
+        (float(np.abs(x - y).max()) for x, y in zip(a.poses, b.poses)
+         if x is not None and y is not None), default=0.0)
+    gap = pose_gap(full[0], full[1])
+    d_res = pose_gap(resumed, full[0])
+    rec["checkpoint"] = dict(
+        frames=len(imgs), size=list(LC_CHECKPOINT["size"]), cut=LC_CUT,
+        accepted=full[0].accepted, keyframes=full[0].n_keyframes,
+        uninterrupted_runs_bit_equal=gap == 0.0,
+        uninterrupted_pose_gap=gap, resumed_pose_max_abs_diff=d_res,
+        checkpoint_bytes=ck_bytes, save_seconds=[t for t, _ in saves],
+        load_seconds=[t for t, _ in loads])
+    log(f"loop_closure: checkpoint {rec['checkpoint']}")
+    require(full[0].accepted == full[1].accepted == resumed.accepted,
+            f"loop_closure: checkpoint accepted {resumed.accepted} vs "
+            f"{full[0].accepted}, {full[1].accepted}")
+    require(sum(a == 2 for a in full[0].accepted) >= 3,
+            "loop_closure: the checkpoint run made fewer than 3 keyframes")
+    require(d_res <= gap, f"loop_closure: resumed poses {d_res} from the "
+            f"uninterrupted run's (two uninterrupted runs: {gap})")
+
+    # (d) the bench's section
+    rec["bench"] = bench.bench_loopclosure(device=device)
+    log(f"loop_closure: bench {rec['bench']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, k2
+
+
+
 def registers(nvcc_log):
     """({kernel entry: registers}, {kernel entry: spill bytes stored +
     loaded}) from ``nvcc -Xptxas -v`` output."""
@@ -2429,7 +2672,6 @@ def main():
         log("phase lk_modes")
         lk_modes, k3["launches"], k4["launches"] = phase_lk_modes(
             pair_in, fleet_in, config)
-        emit({"kernels": [k1, k2, k3, k4]})
         emit({"main_path": main_path})
         emit({"single_agent": single_agent})
         emit({"lk_modes": lk_modes})
@@ -2447,9 +2689,21 @@ def main():
         emit({"main_path_closed": phase_main_path_closed(single, res,
                                                          device)})
         log("phase multi_agent (fleet -> dumps -> merge -> joint BA)")
-        multi_agent, _, _ = phase_multi_agent(cal, config, states, imgs,
-                                              seqs, device)
+        multi_agent, k1_ma, k2_ma = phase_multi_agent(cal, config, states,
+                                                      imgs, seqs, device)
         emit({"multi_agent": multi_agent})
+        log("phase loop_closure (loop_demo, DB, pose graph, checkpoint)")
+        loop_closure, k2_lc = phase_loop_closure(device)
+        emit({"loop_closure": loop_closure})
+        # each path's launches, counted from 0 just before it
+        k1["launches_by_path"] = {"main_path": k1["launches"],
+                                  "multi_agent": k1_ma}
+        k2["launches_by_path"] = {"single_agent": k2["launches"],
+                                  "multi_agent": k2_ma,
+                                  "loop_closure": k2_lc}
+        for k in (k1, k2):
+            k["launches"] = sum(k["launches_by_path"].values())
+        emit({"kernels": [k1, k2, k3, k4]})
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

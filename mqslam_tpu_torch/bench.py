@@ -31,11 +31,14 @@ the port has the modules for:
   100-iteration budgets run in full (``cg_tol=0``), and each layout's bytes
   an iteration against the card's memory rate (``efficiency.cg_*``,
   ``banded_cg_*``, ``coo_cg_*``);
+* loop closure (``loop_closure``): keyframe-DB scorings/s of one query
+  against a full 256-keyframe x 384-descriptor DB (20 scans) and pose-graph
+  LM iterations/s on a 512-pose circuit with 16 closure edges (20
+  iterations), best of 3;
 * ``vs_baseline``: OpenCV's per-frame ladder on the host's CPU where cv2
   imports, else 30 frames/s (real time).
 
-The JAX bench's loop-closure section is left out of ``extra`` (its modules
-are not ported yet: ``NOT_PORTED``); the log on stderr names it.  Every
+Every section of the JAX bench is here (``NOT_PORTED`` is empty).  Every
 function takes ``device=`` (None: the CUDA device), so the tests run them
 on the CPU at tiny sizes; a time from a CPU run is not a device figure.
 """
@@ -51,6 +54,8 @@ import numpy as np
 import torch
 
 from mqslam_tpu_torch import convert, resolve_device
+from mqslam_tpu_torch.ba import posegraph as pg
+from mqslam_tpu_torch.frontend import loopclosure as lc
 from mqslam_tpu_torch.frontend import synthetic, tracker as trk
 from mqslam_tpu_torch.ops import features, lk
 from mqslam_tpu_torch.ops import triangulation as tri
@@ -58,15 +63,13 @@ from mqslam_tpu_torch.ops import triangulation as tri
 __all__ = ["render_fleet", "bench_single", "bench_multi",
            "bench_multi_divergent", "lk_pair_inputs", "bench_lk_impls",
            "lk_efficiency", "bench_ba_iters", "bench_corridor_cg",
-           "cg_efficiency", "bench_triangulation", "bench_opencv_baseline", "summary",
+           "cg_efficiency", "bench_triangulation", "bench_loopclosure",
+           "loopclosure_inputs", "bench_opencv_baseline", "summary",
            "main"]
 
 METRIC = "slam_frontend_aggregate_frames_per_s_per_chip"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-NOT_PORTED = (
-    ("bench_loopclosure", "loop_closure", "ROADMAP Queue 1 item 13 (loop "
-     "closure)"),
-)
+NOT_PORTED = ()
 LK_IMPLS = ("xla", "pallas", "fused", "tiled")
 
 _T0 = time.perf_counter()
@@ -433,6 +436,78 @@ def cg_efficiency(corridor):
     return out
 
 
+def loopclosure_inputs(cap=256, K=384, N=512, device=None):
+    """The JAX bench's loop-closure workloads (``bench.py:460-537``, same
+    seed and draws): a full keyframe DB of ``cap`` x ``K`` random
+    descriptors with one query, and the ``N``-pose circuit with an odometry
+    chain and 16 closure edges.  Returns (db, q_desc, q_valid, graph)."""
+    device = resolve_device(device)
+    rng = np.random.RandomState(5)
+    dev = lambda x: torch.as_tensor(x).to(device)
+    db = lc.KeyframeDB(
+        desc=dev(rng.randint(0, 256, (cap, K, 32), np.uint8)),
+        desc_valid=dev(np.ones((cap, K), bool)),
+        uv=dev(rng.rand(cap, K, 2).astype(np.float32) * 400),
+        xyz=dev(rng.randn(cap, K, 3).astype(np.float32)),
+        xyz_valid=dev(np.ones((cap, K), bool)),
+        pose=dev(np.zeros((cap, 6), np.float32)),
+        used=dev(np.ones(cap, bool)), count=dev(np.int32(cap)))
+    q_desc = dev(rng.randint(0, 256, (K, 32), np.uint8))
+    q_valid = dev(np.ones(K, bool))
+
+    ang = np.linspace(0, 2 * np.pi, N, endpoint=False)
+    centers = np.stack([np.cos(ang), np.sin(ang), 0 * ang], 1) * 4.0
+    poses = np.concatenate([np.zeros((N, 3)), centers], 1)
+    noisy = poses + rng.randn(N, 6) * 0.02
+    ei = np.concatenate([np.arange(N - 1), np.arange(0, N, N // 16)])
+    ej = np.concatenate([np.arange(1, N),
+                         (np.arange(0, N, N // 16) + N // 2) % N])
+    f32 = lambda x: dev(np.asarray(x, np.float32))
+    i32 = lambda x: dev(np.asarray(x, np.int32))
+    g = pg.PoseGraph(
+        poses=f32(noisy), pose_valid=dev(np.ones(N, bool)),
+        edge_i=i32(ei), edge_j=i32(ej),
+        edge_meas_r=f32(np.zeros((len(ei), 3))),
+        edge_meas_t=f32(centers[ej] - centers[ei]),
+        edge_inv_sigma=f32(np.full((len(ei), 6), 20.0)),
+        edge_valid=dev(np.ones(len(ei), bool)),
+        prior_mask=dev(np.arange(N) == 0), prior_r=f32(noisy[:, :3] * 0),
+        prior_t=f32(centers), prior_inv_sigma=f32(np.full((N, 6), 100.0)))
+    return db, q_desc, q_valid, g
+
+
+def bench_loopclosure(repeats=3, n_scan=20, cap=256, K=384, N=512,
+                      device=None):
+    """Loop-closure components at workload scale: keyframe-DB scorings/s
+    (one query against the FULL ``cap``-keyframe DB, ``loop_scores``, the
+    scores fed back into the query as the JAX bench does) and pose-graph
+    LM iterations/s (``pgo_solve``, 20 iterations) on the ``N``-pose
+    circuit (``loopclosure_inputs``); best of ``repeats`` after a warm-up,
+    host clock closed by a synchronize."""
+    device = resolve_device(device)
+    db, q_desc, q_valid, g = loopclosure_inputs(cap, K, N, device=device)
+
+    def score_scan():
+        c = q_desc
+        for _ in range(n_scan):
+            s, _, _ = lc.loop_scores(db, c, q_valid, cur_index=cap)
+            c = torch.bitwise_xor(c, (s.sum() % 2).to(torch.uint8))
+        return c
+
+    iters = 20
+    with torch.no_grad():
+        score_scan()
+        scores_qps = n_scan / _best(score_scan, device, repeats)
+        pg.pgo_solve(g, iters=iters)
+        pgo_ips = iters / _best(lambda: pg.pgo_solve(g, iters=iters),
+                                device, repeats)
+    return {"orb_db_scores_per_s": round(scores_qps, 1),
+            "db_keyframes": cap,
+            "pgo_iters_per_s": round(pgo_ips, 1),
+            "pgo_poses": int(g.poses.shape[0]),
+            "pgo_edges": int(g.edge_i.shape[0])}
+
+
 def bench_opencv_baseline(imgs, P_list, f, size, plane_z, passes=2):
     """The per-frame kernel ladder of the system the JAX package was
     modelled on, through OpenCV on the host's CPU (calcOpticalFlowPyrLK,
@@ -487,10 +562,10 @@ def _opencv_ladder_once(imgs, P_list, f, size, plane_z):
 
 
 def summary(scaling, cloned, fps1, lk_ms, tri_mps, eff, base, device_info,
-            ba, corridor):
+            ba, corridor, loop):
     """The JSON line: the headline is the best point of the divergent
     sweep; ``ba`` is ``bench_ba_iters``'s dict, ``corridor``
-    ``bench_corridor_cg``'s."""
+    ``bench_corridor_cg``'s, ``loop`` ``bench_loopclosure``'s."""
     best_A = max(scaling, key=lambda k: scaling[k])
     headline = scaling[best_A]
     return {
@@ -507,6 +582,7 @@ def summary(scaling, cloned, fps1, lk_ms, tri_mps, eff, base, device_info,
             "lk_per_call_ms": lk_ms,
             "triangulation_mpts_per_s": tri_mps,
             "corridor_cg": corridor,
+            "loop_closure": loop,
             "efficiency": eff,
             "cv2_ladder_fps_host": base,
             "device": device_info,
@@ -530,8 +606,6 @@ def _device_info(device):
 
 def main():
     device = resolve_device(None)
-    for name, keys, item in NOT_PORTED:
-        _log(f"left out: {name} ({keys}): not ported yet, {item}")
     _log("rendering the single-agent sequence and the 32-agent fleet")
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
         fleet = ex.submit(render_fleet, 32)
@@ -575,6 +649,8 @@ def main():
     _log(f"LK and CG against the memory bound: {eff}")
     ba = bench_ba_iters(device=device)
     _log(f"BA: {ba}")
+    loop = bench_loopclosure(device=device)
+    _log(f"loop closure: {loop}")
 
     base = bench_opencv_baseline(imgs, P_list, f, size, plane_z)
     if base is None:
@@ -583,7 +659,8 @@ def main():
     else:
         _log(f"baseline: cv2 ladder {base:.2f} frames/s on the host's CPU")
     print(json.dumps(summary(scaling, cloned, fps1, lk_ms, tri_mps, eff,
-                             base, _device_info(device), ba, corridor)),
+                             base, _device_info(device), ba, corridor,
+                             loop)),
           flush=True)
     return 0
 

@@ -7,7 +7,11 @@ SVO runner (Work/SLAM/application/SVO/run_pipeline.cpp:266-309).
 
     python -m mqslam_tpu_torch.cli.slam_run IMG_DIR camera_intrinsics.txt \\
         --init-pose init_pose.txt --init-points init_points.pcd \\
-        --ba-info-dir OUT [--device cuda|cpu]
+        --ba-info-dir OUT [--loop-closure] [--checkpoint ck.npz
+        [--checkpoint-every N] [--resume]] [--device cuda|cpu]
+
+The RANSAC draws come from a generator seeded 0 on the device, so a run
+resumed with ``--resume`` repeats the uninterrupted one.
 """
 
 import argparse
@@ -20,10 +24,6 @@ import numpy as np
 _NOT_PORTED = (
     ("init_chessboard", "--init-chessboard", "ops/chessboard.py and "
                                              "calib/zhang.py"),
-    ("loop_closure", "--loop-closure", "ops/orb.py, frontend/loopclosure.py "
-                                       "and ba/posegraph.py"),
-    ("checkpoint", "--checkpoint", "frontend/checkpoint.py"),
-    ("resume", "--resume", "frontend/checkpoint.py"),
     ("debug_dir", "--debug-dir", "viz/painter.py"),
 )
 
@@ -60,13 +60,13 @@ def main(argv=None):
     ap.add_argument("--square-size", type=float, default=1.0,
                     help="chessboard square size in world units")
     ap.add_argument("--loop-closure", action="store_true",
-                    help="ORB loop-closure + pose-graph correction (not "
-                         "ported yet)")
+                    help="ORB loop-closure + pose-graph correction")
     ap.add_argument("--checkpoint", default=None,
-                    help="checkpoint file (not ported yet)")
+                    help="checkpoint file (written every "
+                         "--checkpoint-every frames)")
     ap.add_argument("--checkpoint-every", type=int, default=30)
     ap.add_argument("--resume", action="store_true",
-                    help="resume from --checkpoint (not ported yet)")
+                    help="resume from --checkpoint")
     ap.add_argument("--debug-dir", default=None,
                     help="Composite 2D/3D debug views (not ported yet)")
     ap.add_argument("--debug-every", type=int, default=10)
@@ -137,6 +137,12 @@ def main(argv=None):
                        generator=torch.Generator(device=device).manual_seed(0),
                        collect_ba=args.ba_info_dir is not None,
                        verbose=not args.quiet, t0=1.0 / args.fps,
+                       loop_closure=args.loop_closure,
+                       checkpoint_every=(args.checkpoint_every
+                                         if args.checkpoint else 0),
+                       checkpoint_path=args.checkpoint,
+                       resume_from=(args.checkpoint if args.resume
+                                    else None),
                        device=device)
 
     tum.save_trajectory(args.traj_out, res.trajectory)

@@ -1,8 +1,8 @@
 """State carried across from the JAX package, as NumPy arrays.
 
 The port never sees a JAX object: a caller turns the JAX ``TrackerState`` /
-calibration / ``BAProblem`` / ``BAVariables`` into NumPy (``np.asarray`` per
-field) and hands the dict here.
+calibration / ``BAProblem`` / ``BAVariables`` / ``KeyframeDB`` /
+``PoseGraph`` into NumPy (``np.asarray`` per field) and hands the dict here.
 ``flatten_ba_data`` goes the other way for comparisons: it reads attributes
 only, so it takes this package's ``io.ba_info.BAData`` and any object of the
 same shape.
@@ -14,15 +14,19 @@ import numpy as np
 import torch
 
 from mqslam_tpu_torch import resolve_device
+from mqslam_tpu_torch.ba.posegraph import PoseGraph
 from mqslam_tpu_torch.ba.problem import BAProblem, BAVariables
 from mqslam_tpu_torch.core import camera
 from mqslam_tpu_torch.core.camera import Cal3DS2
+from mqslam_tpu_torch.frontend.loopclosure import KeyframeDB
 from mqslam_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
 
 __all__ = ["cal_from_numpy", "cal_from_K_dist", "config_from_jax",
            "state_from_numpy", "state_to_numpy", "flatten_ba_data",
            "problem_from_numpy", "variables_from_numpy",
-           "variables_to_numpy"]
+           "variables_to_numpy", "keyframe_db_from_numpy",
+           "keyframe_db_to_numpy", "pose_graph_from_numpy",
+           "pose_graph_to_numpy"]
 
 _DTYPES = {
     "base_uv": torch.float32, "cur_uv": torch.float32,
@@ -77,6 +81,10 @@ def state_to_numpy(state: TrackerState):
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
 
 
+def _tuple_to_numpy(t):
+    return {k: x.detach().cpu().numpy() for k, x in t._asdict().items()}
+
+
 def _ba_tensor(a, device):
     a = np.array(a)                 # a writable copy of a read-only view
     if a.dtype.kind == "f":
@@ -96,7 +104,7 @@ def variables_from_numpy(fields, device=None):
 
 def variables_to_numpy(v: BAVariables):
     """{field: ndarray} of BAVariables (host copy)."""
-    return {k: x.detach().cpu().numpy() for k, x in v._asdict().items()}
+    return _tuple_to_numpy(v)
 
 
 def problem_from_numpy(fields, device=None):
@@ -112,6 +120,43 @@ def problem_from_numpy(fields, device=None):
         init=variables_from_numpy(fields["init"], device),
         **{k: _ba_tensor(fields[k], device) for k in BAProblem._fields
            if k != "init"})
+
+
+def _tuple_from_numpy(cls, fields, device, dtypes=None):
+    """A NamedTuple of tensors from {field: ndarray}; every field is
+    expected.  Floats become float32, integers int32 (``dtypes`` overrides
+    per field), booleans stay."""
+    device = resolve_device(device)
+    missing = [k for k in cls._fields if k not in fields]
+    if missing:
+        raise KeyError(f"{cls.__name__} fields missing: {missing}")
+    out = {k: _ba_tensor(fields[k], device) for k in cls._fields}
+    for k, dt in (dtypes or {}).items():
+        out[k] = out[k].to(dt)
+    return cls(**out)
+
+
+def keyframe_db_from_numpy(fields, device=None):
+    """KeyframeDB from {field: ndarray} (the JAX package's, field by field:
+    descriptors uint8, masks bool, the rest float32, ``count`` int32)."""
+    return _tuple_from_numpy(KeyframeDB, fields, device,
+                             {"desc": torch.uint8})
+
+
+def keyframe_db_to_numpy(db: KeyframeDB):
+    """{field: ndarray} of a KeyframeDB (host copy)."""
+    return _tuple_to_numpy(db)
+
+
+def pose_graph_from_numpy(fields, device=None):
+    """PoseGraph from {field: ndarray} (floats float32, edge ids int32,
+    masks bool)."""
+    return _tuple_from_numpy(PoseGraph, fields, device)
+
+
+def pose_graph_to_numpy(g: PoseGraph):
+    """{field: ndarray} of a PoseGraph (host copy)."""
+    return _tuple_to_numpy(g)
 
 
 def flatten_ba_data(data):

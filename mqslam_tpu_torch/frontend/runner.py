@@ -9,7 +9,9 @@ trajectory keeps a hole (slam2.py:1221-1225).
 
 Every read of a device value makes the host wait for the device, so what the
 loop needs of a frame comes back in ONE transfer (``_fetch``); each frame
-pays one pyramid build (the previous frame's pyramid is kept).
+pays one pyramid build (the previous frame's pyramid is kept).  Loop closure
+adds one or two reads per keyframe (whether a candidate was found, whether
+it verified) and a pose-graph solve after the sequence.
 """
 
 from dataclasses import dataclass, field
@@ -19,11 +21,14 @@ import numpy as np
 import torch
 
 from mqslam_tpu_torch import resolve_device
-from mqslam_tpu_torch.core import camera as cam_mod, se3
+from mqslam_tpu_torch.ba import posegraph as pg
+from mqslam_tpu_torch.core import camera as cam_mod, se3, so3
+from mqslam_tpu_torch.frontend import checkpoint as ckpt
+from mqslam_tpu_torch.frontend import loopclosure as lc
 from mqslam_tpu_torch.frontend import tracker as trk
 from mqslam_tpu_torch.io import ba_info as ba_io, pcd as pcd_mod, tum
 from mqslam_tpu_torch.io.nputil import matrix_to_quat_np
-from mqslam_tpu_torch.ops import lk
+from mqslam_tpu_torch.ops import lk, orb
 
 __all__ = ["FrontendResult", "run_frontend"]
 
@@ -39,7 +44,7 @@ class FrontendResult:
     n_keyframes: int
     accepted: List[int]                    # per-frame 0/1/2
     loop_edges: List[tuple] = field(default_factory=list)
-    # always empty: loop closure is not ported yet
+    # (kf_i, kf_j, meas_r [3], meas_t [3]) accepted loop closures
 
 
 def _cam_to_world(rvec, tvec):
@@ -81,7 +86,9 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
                  ransac_scores=None, collect_ba: bool = True,
                  verbose: bool = False, live_update_period: int = 0,
                  traj_out_file: str = None, map_out_file: str = None,
-                 loop_closure: bool = False, t0: float = 0.0,
+                 loop_closure: bool = False, loop_min_gap: int = 5,
+                 loop_min_matches: int = 25, max_keyframes: int = 256,
+                 loop_ransac_scores=None, t0: float = 0.0,
                  checkpoint_every: int = 0, checkpoint_path: str = None,
                  resume_from: str = None, debug_dir: str = None,
                  device=None, stage_ms=None):
@@ -94,33 +101,46 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
     live Blender-viewer hook (slam2.py:1244-1248, blender_tools.py:501-596
     polls these files).
 
+    loop_closure=True maintains an ORB keyframe database (``max_keyframes``
+    slots); at every keyframe the DB is queried (keyframes at least
+    ``loop_min_gap`` keyframes old, ``loop_min_matches`` matches), the best
+    candidate verified by RANSAC PnP and kept as a loop edge; after the
+    sequence, verified loop edges + keyframe odometry feed a pose-graph
+    optimization that corrects every pose and landmark (the capability the
+    reference lacks — its drift correction is offline BA only).
+
     ``t0`` is the timestamp of frame 0; the reference convention is
     t0 = 1/fps (dataset_tools.py:275-294 convert_cam_poses_to_cam_trajectory
     "Timestamp of first pose starts at 1.0 / fps"), which the CLI uses so
     trajectories associate with the ICL-NUIM/SVO ground-truth files.
 
+    With ``checkpoint_every`` > 0 and ``checkpoint_path`` set, the full
+    resumable state (tracker state, generator states, host bookkeeping) is
+    written after every accepted frame whose index is a multiple of N;
+    ``resume_from`` restarts mid-sequence bit-identically to an
+    uninterrupted run (frontend/checkpoint.py; pass the same ``images``,
+    ``ransac_scores`` or a ``generator``, whose state is restored).
+
     ``device=None`` is the CUDA device (raises without one); pass ``"cpu"``
     to run there.  The RANSAC draws are explicit: ``ransac_scores``
     [n_frames - 1, n_hyp, K] (frame i uses row i - 1) or a
     ``torch.Generator`` on the device; with neither, torch's global
-    generator draws.  ``stage_ms`` (a dict) receives accumulated milliseconds
+    generator draws.  Loop verification draws from ``loop_ransac_scores``
+    [n_verifications, 128, K] (one row per verification, in order) or, when
+    None, from a generator seeded ``generator.initial_seed() + 1`` (the JAX
+    package's ``PRNGKey(seed + 1)``), or torch's global one without a
+    ``generator``.  ``stage_ms`` (a dict) receives accumulated milliseconds
     per stage; asking for it synchronizes after every stage.
 
-    Not ported yet, and refused rather than ignored: ``loop_closure`` (needs
-    ops/orb, frontend/loopclosure, ba/posegraph), ``checkpoint_every`` /
-    ``checkpoint_path`` / ``resume_from`` (frontend/checkpoint) and
-    ``debug_dir`` (viz/painter).
+    Not ported yet, and refused rather than ignored: ``debug_dir``
+    (viz/painter).
     """
-    for asked, missing in (
-            (loop_closure, "loop_closure needs ops/orb.py, "
-                           "frontend/loopclosure.py and ba/posegraph.py"),
-            (checkpoint_every or checkpoint_path or resume_from,
-             "checkpoints need frontend/checkpoint.py"),
-            (debug_dir, "debug views need viz/painter.py")):
-        if asked:
-            raise NotImplementedError(
-                f"run_frontend: {missing}, which mqslam_tpu_torch does not "
-                "have yet")
+    if debug_dir:
+        raise NotImplementedError(
+            "run_frontend: debug views need viz/painter.py, which "
+            "mqslam_tpu_torch does not have yet")
+    if resume_from and loop_closure:
+        raise ValueError("resume_from with loop_closure is not supported")
     device = resolve_device(device)
     cal = cal.to(device)
     _, refill_kf, step_pyr = trk.make_step(cal, config, device)
@@ -135,13 +155,23 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
 
     images = iter(images)
     first = np.asarray(next(images), dtype=np.float32)
+    if resume_from:
+        (state, frame_idx, prev_np, poses, accepted_flags, bk,
+         rng) = ckpt.load_checkpoint(resume_from, device=device)
+        for _ in range(frame_idx):  # frame 0 already consumed
+            next(images)
+        if generator is not None and "generator" in rng:
+            generator.set_state(rng["generator"])
+    else:
+        with torch.no_grad():
+            state = trk.bootstrap(init_uv, init_objp, cal, first, config,
+                                  device=device)
+        state0 = _fetch(state)
+        poses = [_cam_to_world(state0.rvec, state0.tvec)]
+        accepted_flags = [2]
+        frame_idx, prev_np = 0, first
     with torch.no_grad():
-        state = trk.bootstrap(init_uv, init_objp, cal, first, config,
-                              device=device)
-        prev_pyr = pyramid(to_device(first))
-    state0 = _fetch(state)
-    poses = [_cam_to_world(state0.rvec, state0.tvec)]
-    accepted_flags = [2]
+        prev_pyr = pyramid(to_device(prev_np))
     n_init = len(init_uv)
 
     # --- BA bookkeeping ---
@@ -149,6 +179,7 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
     # tracking history: frames since last keyframe (inclusive), as
     # (frame_idx, uv [K,2], alive [K], compact_index [K])
     history = []
+    last_kf_frame = 0
 
     def frame_2d_list(uv, alive):
         """Compact per-frame 2D list + slot->list-index map."""
@@ -157,7 +188,9 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
         comp[idxs] = np.arange(len(idxs))
         return uv[idxs], comp
 
-    if collect_ba:
+    if resume_from:
+        data, history, last_kf_frame = bk
+    elif collect_ba:
         data.pose_noise = [ba_io.NoiseModel.diagonal(
             [0.002] * 3 + [0.001] * 3)]
         data.odometry_noise = [[ba_io.NoiseModel.diagonal(
@@ -180,9 +213,28 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
         data.odometry = [[]]
         data.odometry_assocs = [[]]
         history.append((0, uv0, alive0, comp))
-        last_kf_frame = 0
 
-    frame_idx = 0
+    # --- loop-closure bookkeeping (keyframe DB + edges) ---
+    loop_edges = []
+    lc_gen = None
+    if loop_closure:
+        db = lc.empty_db(capacity=max_keyframes, k=config.max_tracks,
+                         device=device)
+        if generator is not None:
+            lc_gen = torch.Generator(device=device).manual_seed(
+                generator.initial_seed() + 1)
+        n_verify = 0
+        kf_frames = [0]
+        with torch.no_grad():
+            desc0, _, okd0 = orb.brief_describe(
+                to_device(first), state.cur_uv, state.active)
+            db = lc.add_keyframe(
+                db, desc0, okd0, state.cur_uv, _landmarks_of(state),
+                state.active & state.triangulated & okd0,
+                _pose6_from_w2c(state0.rvec, state0.tvec, device))
+        lm_ranges = [(0, int(state0.n_objp), 0)]
+        last_n_objp = int(state0.n_objp)
+
     for img in images:
         frame_idx += 1
         clock.mark()
@@ -263,6 +315,49 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
                         (0, last_kf_frame, 0, frame_idx)]
                 last_kf_frame = frame_idx
                 history = [(frame_idx, uv, alive, comp)]
+            if loop_closure:
+                kf_ord = len(kf_frames)
+                if kf_ord == max_keyframes:
+                    # DB saturated: later keyframes are not queryable as
+                    # loop candidates (add_keyframe becomes a no-op)
+                    print(f"WARNING: loop-closure keyframe DB full "
+                          f"({max_keyframes}); frame {frame_idx} and later "
+                          f"keyframes will not be stored", flush=True)
+                with torch.no_grad():
+                    alive_j = out_dev.track_alive
+                    desc, _, okd = orb.brief_describe(
+                        new_img, out_dev.cur_uv, alive_j)
+                    # query before inserting (recency gate in KF ordinals)
+                    scores, i1, good = lc.loop_scores(
+                        db, desc, okd, cur_index=kf_ord,
+                        min_gap=loop_min_gap)
+                    cand, found = lc.best_candidate(
+                        scores, min_matches=loop_min_matches)
+                    if bool(found):
+                        sc = None if loop_ransac_scores is None else \
+                            torch.as_tensor(
+                                loop_ransac_scores[n_verify]).to(device)
+                        n_verify += 1
+                        rv, tv, n_inl, okv = lc.verify_loop(
+                            db, cand, i1, good, out_dev.cur_uv, okd, cal,
+                            scores=sc, generator=lc_gen)
+                        if bool(okv):
+                            mr, mt = lc.relative_edge(db.pose[cand], rv, tv)
+                            loop_edges.append((int(cand), kf_ord,
+                                               mr.cpu().numpy(),
+                                               mt.cpu().numpy()))
+                            if verbose:
+                                print(f"frame {frame_idx}: LOOP "
+                                      f"kf{int(cand)}->kf{kf_ord} "
+                                      f"({int(n_inl)} inliers)")
+                    db = lc.add_keyframe(
+                        db, desc, okd, out_dev.cur_uv, _landmarks_of(state),
+                        alive_j & out_dev.track_triangulated & okd,
+                        _pose6_from_w2c(out.rvec, out.tvec, device))
+                kf_frames.append(frame_idx)
+                n_now = int(state.n_objp)
+                lm_ranges.append((last_n_objp, n_now, kf_ord))
+                last_n_objp = n_now
             clock.mark("host")
             with torch.no_grad():
                 state = refill_kf(state, new_img)
@@ -277,11 +372,28 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
             _write_live(state, poses, fps, traj_out_file, map_out_file,
                         t0=t0)
         prev_pyr = new_pyr
+        prev_np = img
+        if (checkpoint_every and checkpoint_path
+                and frame_idx % checkpoint_every == 0):
+            ckpt.save_checkpoint(
+                checkpoint_path, state, frame_idx,
+                np.asarray(prev_np, np.float32), poses, accepted_flags,
+                bookkeeping=(data, history, last_kf_frame),
+                generators=dict(generator=generator, loop_generator=lc_gen))
         clock.mark("host")
 
-    # --- outputs ---
+    # --- pose-graph loop-closure correction ---
     n_pts = int(state.n_objp)
-    points3d = state.objp[:n_pts].cpu().numpy()
+    points3d = state.objp[:n_pts].cpu().numpy().copy()
+    if loop_closure and loop_edges:
+        poses, T_kf = _pgo_correct(poses, kf_frames, loop_edges, device)
+        # landmarks move with the keyframe that created them
+        for (lo, hi, kf_ord) in lm_ranges:
+            T = T_kf[kf_ord]
+            pts = points3d[lo:min(hi, n_pts)]
+            points3d[lo:min(hi, n_pts)] = pts @ T[:3, :3].T + T[:3, 3]
+
+    # --- outputs ---
     colors = state.objp_color[:n_pts].cpu().numpy()
     groups = state.objp_group[:n_pts].cpu().numpy()
     traj = _trajectory(poses, fps, t0)
@@ -298,7 +410,99 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
         trajectory=traj, poses=poses, points3d=points3d,
         point_colors=colors, point_groups=groups, ba_data=data,
         n_keyframes=sum(1 for a in accepted_flags if a == 2),
-        accepted=accepted_flags)
+        accepted=accepted_flags, loop_edges=loop_edges)
+
+
+def _landmarks_of(state):
+    """[K] landmark positions of the track slots, ``objp[objp_idx]`` (the
+    tracker keeps the indices in range; the clamp is the JAX gather's)."""
+    idx = torch.clamp(state.objp_idx.long(), 0, state.objp.shape[0] - 1)
+    return state.objp[idx]
+
+
+def _so3_log(R):
+    return so3.log(torch.as_tensor(np.asarray(R, np.float32))).numpy()
+
+
+def _so3_exp(r):
+    return so3.exp(torch.as_tensor(np.asarray(r, np.float32))).numpy()
+
+
+def _pose6_from_w2c(rvec, tvec, device=None):
+    """(rvec, center) cam-to-world pose6 from a world->cam (rvec, tvec),
+    on the host in float32; a tensor on ``device`` when one is given."""
+    rvec = np.asarray(rvec, np.float32)
+    c = -(_so3_exp(rvec).T @ np.asarray(tvec, np.float32))
+    p6 = np.concatenate([-rvec, c]).astype(np.float32)
+    return p6 if device is None else torch.as_tensor(p6).to(device)
+
+
+def _pgo_correct(poses, kf_frames, loop_edges, device=None):
+    """Pose-graph optimization over the keyframes; every frame and landmark
+    is corrected by its governing keyframe's world transform.  The graph is
+    solved on ``device`` (None: the CUDA device).
+
+    Returns (new_poses list, T_kf [n_kf, 4, 4] world corrections)."""
+    device = resolve_device(device)
+    n = len(kf_frames)
+    p6 = np.zeros((n, 6), np.float32)
+    for k, f in enumerate(kf_frames):
+        P = poses[f]
+        p6[k, :3] = _so3_log(P[:3, :3])
+        p6[k, 3:] = P[:3, 3]
+
+    def between(i, j):
+        Pi, Pj = poses[kf_frames[i]], poses[kf_frames[j]]
+        D = np.linalg.inv(Pi) @ Pj
+        return _so3_log(D[:3, :3]), D[:3, 3].astype(np.float32)
+
+    E = n - 1 + len(loop_edges)
+    ei = np.zeros(E, np.int32)
+    ej = np.zeros(E, np.int32)
+    mr = np.zeros((E, 3), np.float32)
+    mt = np.zeros((E, 3), np.float32)
+    sig = np.zeros((E, 6), np.float32)
+    for k in range(n - 1):
+        ei[k], ej[k] = k, k + 1
+        mr[k], mt[k] = between(k, k + 1)
+        sig[k] = [1 / 0.01] * 3 + [1 / 0.05] * 3   # odometry confidence
+    for e, (i, j, r, t) in enumerate(loop_edges):
+        k = n - 1 + e
+        ei[k], ej[k] = i, j
+        mr[k], mt[k] = r, t
+        sig[k] = [1 / 0.005] * 3 + [1 / 0.02] * 3  # verified loops: tight
+    prior_mask = np.zeros(n, bool)
+    prior_mask[0] = True
+    prior_r = np.zeros((n, 3), np.float32)
+    prior_t = np.zeros((n, 3), np.float32)
+    prior_r[0], prior_t[0] = p6[0, :3], p6[0, 3:]
+    prior_sig = np.tile(np.asarray([1e3] * 6, np.float32), (n, 1))
+    dev = lambda x: torch.as_tensor(x).to(device)
+    g = pg.PoseGraph(
+        poses=dev(p6), pose_valid=dev(np.ones(n, bool)), edge_i=dev(ei),
+        edge_j=dev(ej), edge_meas_r=dev(mr), edge_meas_t=dev(mt),
+        edge_inv_sigma=dev(sig), edge_valid=dev(np.ones(E, bool)),
+        prior_mask=dev(prior_mask), prior_r=dev(prior_r),
+        prior_t=dev(prior_t), prior_inv_sigma=dev(prior_sig))
+    with torch.no_grad():
+        new_p6 = pg.pgo_solve(g, iters=25)[0].cpu().numpy()
+
+    T_kf = np.zeros((n, 4, 4), np.float64)
+    for k, f in enumerate(kf_frames):
+        Pn = np.eye(4)
+        Pn[:3, :3] = _so3_exp(new_p6[k, :3])
+        Pn[:3, 3] = new_p6[k, 3:]
+        T_kf[k] = Pn @ np.linalg.inv(poses[f])
+
+    # governing keyframe of each frame = last keyframe at or before it
+    new_poses = list(poses)
+    kf_ptr = 0
+    for f in range(len(poses)):
+        while kf_ptr + 1 < n and kf_frames[kf_ptr + 1] <= f:
+            kf_ptr += 1
+        if poses[f] is not None:
+            new_poses[f] = T_kf[kf_ptr] @ poses[f]
+    return new_poses, T_kf
 
 
 def _write_live(state, poses, fps, traj_out_file, map_out_file,

@@ -1,12 +1,13 @@
 """The port bench (``python -m mqslam_tpu_torch.bench``) on the CPU at tiny
 sizes: every section runs and returns numbers of the right shape, the JSON
-line carries the JAX bench's metric and the ``extra`` keys of the sections
-the port has (BA at scale included), and nothing else of the JAX bench.  Times taken here are CPU
-times and mean nothing about the card."""
+line carries the JAX bench's metric and the ``extra`` keys of its sections
+(BA at scale and loop closure included).  Times taken here are CPU times
+and mean nothing about the card."""
 
 import json
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,6 +15,16 @@ from mqslam_tpu_torch import bench
 from mqslam_tpu_torch.frontend import synthetic, tracker as trk
 
 SIZE, F = (320, 240), 250.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny eager runs: beside parallel test workers, torch's threads spin
+    against each other (a fleet run took minutes instead of seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -125,6 +136,31 @@ def test_corridor_cg():
     assert bench.cg_efficiency({"F": 64, "P": 512, "O": 10}).keys() == set()
 
 
+LOOP = {"orb_db_scores_per_s": 900.0, "db_keyframes": 256,
+        "pgo_iters_per_s": 12.0, "pgo_poses": 512, "pgo_edges": 527}
+
+
+def test_loopclosure_section():
+    """The JAX bench's loop-closure workloads, cut to a tiny DB and circuit
+    here: its keys, and the circuit's edges (the odometry chain, then a
+    closure edge every N // 16 poses to the opposite side)."""
+    inputs = bench.loopclosure_inputs(cap=8, K=16, N=32, device="cpu")
+    db, q_desc, q_valid, g = inputs
+    assert db.desc.shape == (8, 16, 32) and int(db.count) == 8
+    assert q_desc.shape == (16, 32) and bool(q_valid.all())
+    ei, ej = g.edge_i.numpy(), g.edge_j.numpy()
+    assert len(ei) == 31 + 16
+    np.testing.assert_array_equal(ei[31:], np.arange(0, 32, 2))
+    np.testing.assert_array_equal(ej[31:], (np.arange(0, 32, 2) + 16) % 32)
+    out = bench.bench_loopclosure(repeats=1, n_scan=2, cap=8, K=16, N=32,
+                                  device="cpu")
+    assert out.keys() == LOOP.keys()
+    assert positive(out["orb_db_scores_per_s"])
+    assert positive(out["pgo_iters_per_s"])
+    assert (out["db_keyframes"], out["pgo_poses"], out["pgo_edges"]) == (
+        8, 32, 47)
+
+
 def test_json_line(setup):
     (imgs, P_list, f, size, plane_z), *_ = setup
     base = bench.bench_opencv_baseline(imgs, P_list, f, size, plane_z,
@@ -139,7 +175,7 @@ def test_json_line(setup):
          "ba_lm_iterations_per_s_host_loop": 15.0,
          "ba_incremental_steps_per_s": None,
          "ba_workload": "synthetic-cube-2cam"},
-        {"F": 2048, "coo_cg_iter_ms": 9.0}))
+        {"F": 2048, "coo_cg_iter_ms": 9.0}, LOOP))
     out = json.loads(line)
     assert out["metric"] == "slam_frontend_aggregate_frames_per_s_per_chip"
     assert out["unit"] == "frames/s"
@@ -149,17 +185,15 @@ def test_json_line(setup):
     assert extra["agents_scaling_fps"] == {"1": 4.0, "2": 7.5, "4": 6.0}
     assert set(extra["lk_per_call_ms"]) == {"xla", "pallas", "fused",
                                             "tiled"}
-    # the BA and corridor sections' keys as the JAX bench names them; the
-    # incremental figure is null on the cube, and loop closure, which is
-    # not ported, has no key
+    # the BA, corridor and loop-closure sections' keys as the JAX bench
+    # names them; the incremental figure is null on the cube
     assert extra["ba_lm_iterations_per_s"] == 20.0
     assert extra["ba_lm_iterations_per_s_host_loop"] == 15.0
     assert extra["ba_incremental_steps_per_s"] is None
     assert extra["ba_workload"] == "synthetic-cube-2cam"
     assert extra["corridor_cg"] == {"F": 2048, "coo_cg_iter_ms": 9.0}
-    assert "loop_closure" not in extra
-    assert [n for n, _, _ in bench.NOT_PORTED] == ["bench_loopclosure"]
-    assert "item 13" in bench.NOT_PORTED[0][2]
+    assert extra["loop_closure"] == LOOP
+    assert bench.NOT_PORTED == ()
 
 
 def test_main_needs_a_card(monkeypatch):

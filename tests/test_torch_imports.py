@@ -46,7 +46,9 @@ def test_slice_modules_present():
               "cli.evaluate_rpe", "cli.align_traj", "multiagent",
               "multiagent.merge", "multiagent.fleet_dump", "parallel",
               "parallel.sharded_ba", "parallel.multihost", "parallel.fleet",
-              "parallel.dryrun", "cli.collab_demo"):
+              "parallel.dryrun", "cli.collab_demo", "ops.matching",
+              "ops.fast", "ops.orb", "frontend.loopclosure", "ba.posegraph",
+              "frontend.checkpoint", "cli.loop_demo"):
         assert "mqslam_tpu_torch." + m in mods, m
     for f in ("lk_level.cu", "lk_strip.cu", "lk_track.cuh", "extract.cu",
               "lk_iterate.cu"):
@@ -153,6 +155,29 @@ def test_multi_agent_entry_points_need_a_cuda_device_by_default(no_cuda):
             build(*ids)
     with pytest.raises(RuntimeError, match="CUDA"):
         collab_demo.run(n_frames=2, verbose=False)
+
+
+def test_loop_closure_entry_points_need_a_cuda_device_by_default(
+        no_cuda, tmp_path):
+    """The loop-closure slice's entry points (the keyframe DB, the
+    checkpoint loader, the demo, the bench's inputs) take the CUDA device
+    unless asked for the CPU, and never fall back."""
+    from mqslam_tpu_torch import bench
+    from mqslam_tpu_torch.cli import loop_demo
+    from mqslam_tpu_torch.frontend import checkpoint, loopclosure
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loopclosure.empty_db(4, 8)
+    assert loopclosure.empty_db(4, 8, device="cpu").desc.shape == (4, 8, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.load_checkpoint(str(tmp_path / "none.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop_demo.run(n_frames=8, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.loopclosure_inputs(cap=2, K=4, N=32)
+    for carry in (convert.keyframe_db_from_numpy,
+                  convert.pose_graph_from_numpy):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            carry({})
 
 
 def _level_args(device="cpu"):

@@ -163,9 +163,6 @@ def test_live_update_writes_files(runs, tmp_path):
 
 
 @pytest.mark.parametrize("kw, needs", [
-    (dict(loop_closure=True), "loopclosure"),
-    (dict(checkpoint_every=5, checkpoint_path="x"), "checkpoint"),
-    (dict(resume_from="x"), "checkpoint"),
     (dict(debug_dir="x"), "painter"),
 ])
 def test_unported_options_raise(runs, kw, needs):

@@ -107,9 +107,6 @@ def test_cli_max_frames_and_quiet(dataset, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags, word", [
     (["--init-chessboard", "8x6"], "chessboard"),
-    (["--loop-closure"], "loopclosure"),
-    (["--checkpoint", "ck.npz"], "checkpoint"),
-    (["--resume"], "checkpoint"),
     (["--debug-dir", "dbg"], "painter"),
 ])
 def test_cli_unported_options_exit_with_a_message(dataset, tmp_path, capsys,
