@@ -80,8 +80,16 @@ dump, and nothing else; imports only ``mqslam_tpu_torch``.  It
      popcount), ``brief_describe`` on a demo frame and ``pgo_solve`` on
      the bench's 512-pose circuit; a run checkpointed at frame 8 and
      resumed against the uninterrupted run; the bench's loop-closure
-     section.  The ``kernels`` line comes last but one: each kernel's
-     launches summed over the paths it runs on, path by path beside.
+     section.
+ 13. drives the calibration slice (``calibration``): the chessboard
+     detector card against CPU on 15 tilted 1280x720 views of an 8x6
+     board, ``calibrate intrinsics`` over them as PNGs (K against the
+     renderer's and the CPU's), ``undistort_image`` card against CPU, and
+     ``slam_run --init-chessboard 8x6`` over a 49-frame board sequence
+     without and with ``--debug-dir --debug-every 10`` (K2's launches
+     counted; outputs byte-equal; ATE; the debug PNGs).  The ``kernels``
+     line comes last but one: each kernel's launches summed over the paths
+     it runs on, path by path beside.
 
 Every phase must pass; the last line of the output is
 ``{"ok": true, "device": {...}}``.  One JSON object per line before it.
@@ -2576,6 +2584,277 @@ def phase_loop_closure(device):
 
 
 
+# ------------------------------------------------------------ calibration --
+
+CAL_VIEWS = dict(n=15, size=(1280, 720), f=1000.0, board=(8, 6), square=32,
+                 margin=64, tex_scale=64.0, plane_z=4.0, tex_size=1536,
+                 distance=7.0, jitter=0.5, seed=0)
+# 15 views of the CLI's 8x6 board, tilted 10-30 degrees about two axes; the
+# flat margin and the 24-unit texture keep a second copy of the board (the
+# texture wraps) out of every view
+CAL_SEQ = dict(n_frames=49, size=(1280, 720), f=1000.0, plane_z=4.0,
+               seed=7, ang_rate=0.05, vel=(1.2, 0.15, 0.2), tex_scale=128.0,
+               board=(8, 6), square=32, margin=16)
+# the single agent's camera path over a texture that holds the board where
+# frame 0 sees it whole (625 x 500 px of the 1280x720 frame)
+CAL_DIST = np.array([-0.28, 0.08, 0.001, -0.0005])   # undistort's model
+
+
+def _board_scene(c):
+    """``synthetic.chessboard_scene`` of the calibration views ``c``."""
+    from mqslam_tpu_torch.frontend import synthetic
+    return synthetic.chessboard_scene(c["board"], c["square"], c["margin"],
+                                      c["tex_size"], c["tex_scale"],
+                                      c["plane_z"])
+
+
+def _render_board_views(args):
+    """Calibration views ``c`` at the extrinsics ``Ps`` (worker
+    process)."""
+    from mqslam_tpu_torch.frontend import synthetic
+    Ps, c = args
+    return synthetic.render_plane_sequence(
+        Ps, _board_scene(c)[0], size=c["size"], f=c["f"],
+        plane_z=c["plane_z"], tex_scale=c["tex_scale"])
+
+
+def _render_board_sequence(args):
+    """A slice of the board sequence's frames (worker process)."""
+    from mqslam_tpu_torch.frontend import synthetic
+    frames, kw = args
+    return synthetic.build_chessboard_sequence(**kw, frames=frames)
+
+
+def render_calibration(workers=8):
+    """((the 15 views, their extrinsics, T board -> world, square), (the
+    49-frame board sequence, its extrinsics, T board -> world, square)),
+    rendered in worker processes."""
+    from mqslam_tpu_torch.frontend import synthetic
+    c = CAL_VIEWS
+    _, T, sq, aim = _board_scene(c)
+    Ps = synthetic.board_view_poses(np.random.RandomState(c["seed"]), c["n"],
+                                    aim, c["distance"], jitter=c["jitter"])
+    n = CAL_SEQ["n_frames"]
+    cuts = [slice(i, min(i + 7, n)) for i in range(0, n, 7)]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers,
+                                                mp_context=ctx) as pool:
+        views = pool.map(_render_board_views,
+                         [(Ps[i:i + 2], c) for i in range(0, c["n"], 2)])
+        seq = list(pool.map(_render_board_sequence,
+                            [(cut, CAL_SEQ) for cut in cuts]))
+        views = np.concatenate(list(views))
+    imgs = np.concatenate([x[0] for x in seq])
+    P_seq = np.concatenate([x[1] for x in seq])
+    return (views, Ps, T, sq), (imgs, P_seq, seq[0][2], seq[0][3])
+
+
+def median_ms(fn, reps=5):
+    """Host milliseconds of ``fn()``, median of ``reps`` after one warm-up
+    call."""
+    fn()
+    return statistics.median(host_seconds(fn)[0] * 1e3 for _ in range(reps))
+
+
+def phase_calibration(boards, device):
+    """The calibration slice on the card, over ``render_calibration()``'s
+    scenes.  (a) ``find_chessboard_corners``
+    on 15 tilted 1280x720 views of the CLI's 8x6 board, card against CPU on
+    every view (``ok`` equal, corners 1e-3 px); its ms on one view split
+    into the detector (response, NMS, the sort and the one read), the host
+    ordering and the subpixel refinement.  (b) ``calibrate intrinsics``
+    over the views as PNGs: fx, fy within 1 % of the renderer's 1000, cx,
+    cy within 5 px, rms < 0.5 px (the JAX test's bounds); the card's K
+    against ``calibrate_camera`` on the CPU's corners (1e-3 relative, rms
+    1e-3 px); the seconds of ``calibrate_camera_from_images``, of
+    ``_refine`` in it and of its Jacobians.  (c) ``undistort_image`` of a
+    1280x720 view on the card against the CPU (1e-3 gray levels) and its
+    ms.  (d) ``slam_run --init-chessboard 8x6`` over the 49-frame board
+    sequence (PNG files), without and with ``--debug-dir --debug-every
+    10`` (K2's launches counted from 0 before each), after a 4-frame
+    warm-up run: trajectory and map files byte-equal, ATE in the board's
+    frame < 0.05, the PNGs those of every 10th frame, the keyframes and the
+    rejected frames; frames/s of each.  Returns (record, K2 launches of the
+    run with views)."""
+    from mqslam_tpu_torch import convert
+    from mqslam_tpu_torch.calib import undistort, zhang
+    from mqslam_tpu_torch.cli import calibrate, slam_run
+    from mqslam_tpu_torch.eval import ate
+    from mqslam_tpu_torch.io import ba_info, intrinsics, tum
+    from mqslam_tpu_torch.ops import chessboard as cb, lk_fused
+    from mqslam_tpu_torch.viz.painter import save_png
+
+    t_phase = time.perf_counter()
+    (views, Ps, T, sq), (seq, P_seq, T_seq, sq_seq) = boards
+    board = CAL_VIEWS["board"]
+    f, (W, H) = CAL_VIEWS["f"], CAL_VIEWS["size"]
+    rec = dict(views=len(views), size=[W, H], board=list(board))
+
+    # (a) the detector, card against CPU
+    found = {str(dev): [cb.find_chessboard_corners(v, board, device=dev)
+                        for v in views] for dev in (device, "cpu")}
+    ok_g = [o for o, _ in found[str(device)]]
+    ok_c = [o for o, _ in found["cpu"]]
+    require(ok_g == ok_c and all(ok_g), f"calibration: boards found on the "
+            f"card {ok_g}, on the CPU {ok_c}")
+    d_corner = max(float(np.abs(a[1] - b[1]).max()) for a, b in
+                   zip(found[str(device)], found["cpu"]))
+    require(d_corner <= 1e-3, f"calibration: corners {d_corner} px from the "
+            "CPU's")
+    img0 = torch.as_tensor(views[0]).to(device)
+    n_cand = board[0] * board[1] + max(16, board[0] * board[1] // 2)
+    state = {}
+
+    def detect():
+        uv, _, valid = cb.detect_corner_candidates(img0, max_corners=n_cand)
+        got = torch.cat([uv, valid[:, None].to(uv.dtype)], 1).cpu().numpy()
+        state["cand"] = got[got[:, 2] > 0, :2]
+
+    def order():
+        state["ok"], state["corners"] = cb.order_chessboard_corners(
+            state["cand"], board)
+
+    def subpix():
+        ref, okr = cb.corner_subpix(img0, torch.as_tensor(
+            state["corners"]).to(device))
+        torch.cat([ref, okr[:, None].to(ref.dtype)], 1).cpu()
+
+    rec["find_ms"] = dict(
+        total=median_ms(lambda: cb.find_chessboard_corners(
+            views[0], board, device=device)),
+        detector=median_ms(detect), ordering=median_ms(order),
+        subpix=median_ms(subpix))
+    rec["corners_vs_cpu_max_px"] = d_corner
+    log(f"calibration: find_chessboard_corners {rec['find_ms']} ms")
+
+    with tempfile.TemporaryDirectory() as d:
+        # (b) the intrinsics CLI over PNGs, and the library call timed
+        os.makedirs(os.path.join(d, "views"))
+        for i, v in enumerate(views):
+            save_png(os.path.join(d, "views", f"view_{i:02d}.png"),
+                     np.clip(np.rint(v), 0, 255).astype(np.uint8))
+        out = os.path.join(d, "camera_intrinsics.txt")
+        cli_s, (rc, said) = host_seconds(lambda: quiet(calibrate.main, [
+            "intrinsics", os.path.join(d, "views"), "8x6", "-o", out,
+            "--square-size", repr(sq), "--device", str(device)]))
+        require(rc == 0, f"calibrate intrinsics returned {rc}")
+        K, dist5, size = intrinsics.load_camera_intrinsics(out)
+        rms = float(re.search(r"RMS ([0-9.]+)", said).group(1))
+        require(abs(K[0, 0] / f - 1) < 0.01 and abs(K[1, 1] / f - 1) < 0.01
+                and abs(K[0, 2] - W / 2) < 5 and abs(K[1, 2] - H / 2) < 5
+                and rms < 0.5 and tuple(size) == (W, H),
+                f"calibration: K {K.tolist()}, rms {rms}")
+        # the CPU calibrates the CPU's corners of the same views
+        Kc, _, _, _, rms_c = zhang.calibrate_camera(
+            zhang.grid_objp(board, sq), np.stack([c for _, c in found["cpu"]]),
+            (W, H), device="cpu")
+        dK = float(np.abs(K - Kc).max() / f)
+        require(dK < 1e-3 and abs(rms - rms_c) < 1e-3,
+                f"calibration: the card's K {K.tolist()} (rms {rms}) vs the "
+                f"CPU's {Kc.tolist()} (rms {rms_c})")
+        gray = [np.asarray(v, np.float32) for v in views]
+        calib = lambda: zhang.calibrate_camera_from_images(
+            gray, board, square_size=sq, device=device)
+        calib_s, _ = host_seconds(calib)
+        _, refine = timed_calls(zhang, "_refine", calib)
+        # the Jacobians timed inside a second run (their synchronizations
+        # slow the refinement they are a share of)
+        (_, jacs), refine_j = timed_calls(
+            zhang, "_refine", lambda: timed_calls(zhang, "_jacobian", calib))
+        jac_s = sum(t for t, _ in jacs)
+        require(len(jacs) == 25 and len(refine_j) == 1,
+                f"calibration: {len(jacs)} Jacobians in {len(refine_j)} "
+                "refinements")
+        rec["calibrate"] = dict(
+            K=K.tolist(), dist=dist5[:4].tolist(), rms_px=rms,
+            K_cpu=Kc.tolist(), rms_cpu_px=rms_c, K_vs_cpu_rel=dK,
+            cli_seconds=cli_s, from_images_seconds=calib_s,
+            refine_seconds=refine[0][0], refine_iterations=25,
+            jacobian_seconds=jac_s,
+            jacobian_share_of_refine=jac_s / refine_j[0][0])
+        log(f"calibration: {rec['calibrate']}")
+
+        # (c) undistortion, card against CPU
+        cal = convert.cal_from_K_dist(K, CAL_DIST, device=device)
+        und = {str(dev): undistort.undistort_image(views[1], cal, device=dev)
+               for dev in (device, "cpu")}
+        d_und = float(np.abs(und[str(device)][0] - und["cpu"][0]).max())
+        require(und[str(device)][1] == und["cpu"][1] and d_und <= 1e-3,
+                f"calibration: undistort {d_und} gray levels from the CPU's")
+        rec["undistort"] = dict(
+            ms=median_ms(lambda: undistort.undistort_image(
+                views[1], cal, device=device)),
+            max_abs_err_vs_cpu=d_und, roi=list(und["cpu"][1]))
+        log(f"calibration: undistort {rec['undistort']}")
+
+        # (d) the chessboard bootstrap through slam_run, views off and on
+        frames = os.path.join(d, "frames")
+        os.makedirs(frames)
+        for i, im in enumerate(seq):
+            save_png(os.path.join(frames, f"frame-{i:03d}.png"),
+                     np.clip(np.rint(im), 0, 255).astype(np.uint8))
+        intr = os.path.join(d, "seq_intrinsics.txt")
+        intrinsics.save_camera_intrinsics(
+            intr, np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]]),
+            np.zeros(5), (W, H))
+        runs = {}
+        for key in ("warm_up", "plain", "debug"):
+            o = os.path.join(d, key)
+            os.makedirs(o)
+            extra = {"warm_up": ["--max-frames", "4"], "plain": [],
+                     "debug": ["--debug-dir", os.path.join(o, "views"),
+                               "--debug-every", "10"]}[key]
+            lk_fused.launches = 0
+            sec, (rc, _) = host_seconds(lambda: quiet(slam_run.main, [
+                frames, intr, "--init-chessboard", "8x6", "--square-size",
+                repr(sq_seq), "--traj-out", os.path.join(o, "traj.txt"),
+                "--map-out", os.path.join(o, "map.pcd"), "--ba-info-dir", o,
+                "--quiet", "--device", str(device)] + extra))
+            runs[key] = (sec, lk_fused.launches)
+            require(rc == 0, f"slam_run --init-chessboard ({key}) returned "
+                    f"{rc}")
+        n = len(seq)
+        k2 = runs["debug"][1]
+        require(k2 == runs["plain"][1] == 3 * (n - 1),
+                f"calibration: lk_strip launched {k2} times, expected "
+                f"{3 * (n - 1)}")
+        same = all(
+            open(os.path.join(d, "plain", x), "rb").read()
+            == open(os.path.join(d, "debug", x), "rb").read()
+            for x in ("traj.txt", "map.pcd"))
+        require(same, "calibration: debug views changed the trajectory")
+        gt = os.path.join(d, "groundtruth.txt")
+        tum_ground_truth(gt, P_seq @ T_seq)       # board -> cam extrinsics
+        est = os.path.join(d, "debug", "traj.txt")
+        res_ate = ate.evaluate_ate_files(est, gt)
+        require(res_ate.rmse < 0.05, f"calibration: ATE {res_ate.rmse}")
+        data = ba_info.load_ba_data(os.path.join(d, "debug"), "mqslam",
+                                    nr_cameras=1, fps=30)
+        kf = {i for i in range(n) if data.odometry[i]}
+        kept = set(np.rint(tum.load_trajectory(est).timestamps * 30.0)
+                   .astype(int) - 1)
+        due = {i for i in range(1, n)
+               if i % 10 == 0 or i in kf or i not in kept}
+        pngs = sorted(os.listdir(os.path.join(d, "debug", "views")))
+        require(pngs == sorted(f"composite{k}d_{i:05d}.png" for i in due
+                               for k in (2, 3)),
+                f"calibration: debug PNGs {pngs} for frames {sorted(due)}")
+        rec["chessboard_run"] = dict(
+            frames=n, size=list(CAL_SEQ["size"]), accepted=len(kept),
+            keyframes=len(kf) + 1,                # frame 0's too
+            ate_rmse=res_ate.rmse, ate_max=res_ate.max,
+            square_size=sq_seq, seconds=runs["plain"][0],
+            frames_per_s=n / runs["plain"][0],
+            debug_seconds=runs["debug"][0],
+            debug_frames_per_s=n / runs["debug"][0],
+            debug_pngs=len(pngs), debug_frames=sorted(due),
+            trajectory_bit_equal_without_views=same,
+            launches={"lk_strip": k2})
+    log(f"calibration: chessboard run {rec['chessboard_run']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, k2
+
+
 def registers(nvcc_log):
     """({kernel entry: registers}, {kernel entry: spill bytes stored +
     loaded}) from ``nvcc -Xptxas -v`` output."""
@@ -2610,12 +2889,14 @@ def main():
         timeout=60).stdout.strip().splitlines()
     smi = smi[0].strip() if smi else "unknown"
 
-    log("rendering the 16-agent fleet and the single agent (host, NumPy) "
-        "while nvcc runs")
-    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+    log("rendering the 16-agent fleet, the single agent and the "
+        "calibration scenes (host, NumPy) while nvcc runs")
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
         build = ex.submit(csrc.build_all)
+        boards = ex.submit(render_calibration)
         seqs, single = render_all(16, 33, (640, 480), 500.0, single=SINGLE)
         logs = build.result()
+        boards = boards.result()
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
     ptxas = {k: registers(v) for k, v in logs.items()}
@@ -2695,12 +2976,17 @@ def main():
         log("phase loop_closure (loop_demo, DB, pose graph, checkpoint)")
         loop_closure, k2_lc = phase_loop_closure(device)
         emit({"loop_closure": loop_closure})
+        log("phase calibration (chessboard, Zhang, undistort, slam_run "
+            "--init-chessboard --debug-dir)")
+        calib, k2_cal = phase_calibration(boards, device)
+        emit({"calibration": calib})
         # each path's launches, counted from 0 just before it
         k1["launches_by_path"] = {"main_path": k1["launches"],
                                   "multi_agent": k1_ma}
         k2["launches_by_path"] = {"single_agent": k2["launches"],
                                   "multi_agent": k2_ma,
-                                  "loop_closure": k2_lc}
+                                  "loop_closure": k2_lc,
+                                  "calibration": k2_cal}
         for k in (k1, k2):
             k["launches"] = sum(k["launches_by_path"].values())
         emit({"kernels": [k1, k2, k3, k4]})

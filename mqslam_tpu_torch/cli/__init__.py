@@ -10,4 +10,8 @@
   python -m mqslam_tpu_torch.cli.evaluate_rpe  — relative pose error
   python -m mqslam_tpu_torch.cli.align_traj    — anchored scale alignment of
                                                  trajectories and maps
+  python -m mqslam_tpu_torch.cli.calibrate     — camera calibration from
+                                                 chessboard images
+                                                 (intrinsics, undistort,
+                                                 pose, relative, two-view)
 """

@@ -10,6 +10,10 @@ SVO runner (Work/SLAM/application/SVO/run_pipeline.cpp:266-309).
         --ba-info-dir OUT [--loop-closure] [--checkpoint ck.npz
         [--checkpoint-every N] [--resume]] [--device cuda|cpu]
 
+or ``--init-chessboard COLSxROWS [--square-size S]`` in place of the two
+``--init-*`` files (the board's inner corners in frame 0 bootstrap the map),
+and ``--debug-dir D [--debug-every N]`` for the Composite 2D/3D PNG views.
+
 The RANSAC draws come from a generator seeded 0 on the device, so a run
 resumed with ``--resume`` repeats the uninterrupted one.
 """
@@ -18,14 +22,6 @@ import argparse
 import sys
 
 import numpy as np
-
-# options of the argument surface whose modules this package does not have
-# yet: (flag, what it needs)
-_NOT_PORTED = (
-    ("init_chessboard", "--init-chessboard", "ops/chessboard.py and "
-                                             "calib/zhang.py"),
-    ("debug_dir", "--debug-dir", "viz/painter.py"),
-)
 
 
 def main(argv=None):
@@ -56,7 +52,8 @@ def main(argv=None):
                          "'cpu' runs on the CPU)")
     ap.add_argument("--init-chessboard", default=None, metavar="COLSxROWS",
                     help="bootstrap from a chessboard visible in frame 0 "
-                         "(not ported yet)")
+                         "(e.g. 8x6 inner corners), instead of "
+                         "--init-pose/--init-points (slam2.py:1121-1129)")
     ap.add_argument("--square-size", type=float, default=1.0,
                     help="chessboard square size in world units")
     ap.add_argument("--loop-closure", action="store_true",
@@ -68,16 +65,14 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="resume from --checkpoint")
     ap.add_argument("--debug-dir", default=None,
-                    help="Composite 2D/3D debug views (not ported yet)")
-    ap.add_argument("--debug-every", type=int, default=10)
+                    help="write Composite 2D/3D debug views (PNG) here — "
+                         "the headless equivalent of slam2's __debug__ "
+                         "windows (slam2.py:1227-1242)")
+    ap.add_argument("--debug-every", type=int, default=10,
+                    help="debug-view period in frames (keyframes and "
+                         "rejected frames always draw)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
-
-    for attr, flag, needs in _NOT_PORTED:
-        if getattr(args, attr):
-            print(f"{flag} is not ported yet: it needs {needs}, which "
-                  "mqslam_tpu_torch does not have", file=sys.stderr)
-            return 2
 
     import torch
     from mqslam_tpu_torch import convert, resolve_device
@@ -101,33 +96,54 @@ def main(argv=None):
         print(f"{len(paths)} frames; intrinsics fx={K[0,0]:.2f} "
               f"fy={K[1,1]:.2f}; device {device}")
 
-    if not (args.init_pose and args.init_points):
-        print("Provide --init-pose/--init-points (predefined-points "
-              "bootstrap, svo_initialization.py).", file=sys.stderr)
-        return 1
-    # init pose + init 3D points; project to get frame-0 2D points.
-    # init_pose.txt is either a plain 4x4 world->cam extrinsic matrix
-    # (slam2.py:1054-1060 loads it with np.loadtxt) or a TUM line.
-    raw = np.loadtxt(args.init_pose)
-    if raw.shape == (4, 4):
-        P0 = raw
+    if args.init_chessboard:
+        # chessboard bootstrap: inner corners of the board in frame 0 are
+        # the initial 2D-3D correspondences (slam2.py:1121-1146)
+        from mqslam_tpu_torch.calib.zhang import grid_objp
+        from mqslam_tpu_torch.ops import chessboard as cb
+
+        cols, rows = (int(v) for v in args.init_chessboard.lower()
+                      .split("x"))
+        frame0 = images.load_image_gray(paths[0])
+        found, uv0 = cb.find_chessboard_corners(frame0, (cols, rows),
+                                                device=device)
+        if not found:
+            print("First image must contain the entire chessboard! "
+                  "(slam2.py:1122-1124)", file=sys.stderr)
+            return 1
+        pts3d = grid_objp((cols, rows),
+                          scale=args.square_size).astype(np.float32)
+        if not args.quiet:
+            print(f"init: {len(uv0)} chessboard corners detected")
+    elif args.init_pose and args.init_points:
+        # init pose + init 3D points; project to get frame-0 2D points.
+        # init_pose.txt is either a plain 4x4 world->cam extrinsic matrix
+        # (slam2.py:1054-1060 loads it with np.loadtxt) or a TUM line.
+        raw = np.loadtxt(args.init_pose)
+        if raw.shape == (4, 4):
+            P0 = raw
+        else:
+            init = tum.load_trajectory(args.init_pose)
+            P0 = tum.extrinsics_from_trajectory(init)[0]
+        pts3d, _, _ = pcd.load_pcd(args.init_points)
+        uv0, depth = cam_mod.project(f32(pts3d), f32(P0), cal)
+        uv0, depth = uv0.cpu().numpy(), depth.cpu().numpy()
+        # visibility filter: in front of the camera AND inside the image
+        # (transforms.py:200-226 project_points status; slam2.py:1058-1060)
+        w, h = int(size[0]), int(size[1])
+        ok = ((depth > 0)
+              & (uv0[:, 0] >= 0) & (uv0[:, 0] < w)
+              & (uv0[:, 1] >= 0) & (uv0[:, 1] < h))
+        uv0 = uv0[ok]
+        pts3d = pts3d[ok]
+        if not args.quiet:
+            print(f"init: {ok.sum()}/{len(ok)} predefined points visible "
+                  f"in frame 0")
     else:
-        init = tum.load_trajectory(args.init_pose)
-        P0 = tum.extrinsics_from_trajectory(init)[0]
-    pts3d, _, _ = pcd.load_pcd(args.init_points)
-    uv0, depth = cam_mod.project(f32(pts3d), f32(P0), cal)
-    uv0, depth = uv0.cpu().numpy(), depth.cpu().numpy()
-    # visibility filter: in front of the camera AND inside the image
-    # (transforms.py:200-226 project_points status; slam2.py:1058-1060)
-    w, h = int(size[0]), int(size[1])
-    ok = ((depth > 0)
-          & (uv0[:, 0] >= 0) & (uv0[:, 0] < w)
-          & (uv0[:, 1] >= 0) & (uv0[:, 1] < h))
-    uv0 = uv0[ok]
-    pts3d = pts3d[ok]
-    if not args.quiet:
-        print(f"init: {ok.sum()}/{len(ok)} predefined points visible "
-              f"in frame 0")
+        print("Provide --init-chessboard COLSxROWS (chessboard bootstrap) "
+              "or --init-pose/--init-points (predefined-points bootstrap, "
+              "svo_initialization.py).", file=sys.stderr)
+        return 1
 
     config = trk.TrackerConfig(max_tracks=args.max_tracks,
                                target_keypoints=args.target_keypoints)
@@ -143,7 +159,8 @@ def main(argv=None):
                        checkpoint_path=args.checkpoint,
                        resume_from=(args.checkpoint if args.resume
                                     else None),
-                       device=device)
+                       debug_dir=args.debug_dir,
+                       debug_every=args.debug_every, device=device)
 
     tum.save_trajectory(args.traj_out, res.trajectory)
     gray = np.clip(res.point_colors, 0, 255).astype(np.uint8)

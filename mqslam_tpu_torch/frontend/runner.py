@@ -14,6 +14,7 @@ adds one or two reads per keyframe (whether a candidate was found, whether
 it verified) and a pose-graph solve after the sequence.
 """
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -91,7 +92,7 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
                  loop_ransac_scores=None, t0: float = 0.0,
                  checkpoint_every: int = 0, checkpoint_path: str = None,
                  resume_from: str = None, debug_dir: str = None,
-                 device=None, stage_ms=None):
+                 debug_every: int = 10, device=None, stage_ms=None):
     """Run the front-end over a grayscale image sequence.
 
     images: iterable of [H, W] float arrays (0..255). init_uv/init_objp:
@@ -132,13 +133,12 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
     ``generator``.  ``stage_ms`` (a dict) receives accumulated milliseconds
     per stage; asking for it synchronizes after every stage.
 
-    Not ported yet, and refused rather than ignored: ``debug_dir``
-    (viz/painter).
+    ``debug_dir`` writes the Composite 2D/3D debug views (viz/painter.py —
+    the headless equivalent of slam2's __debug__ windows, slam2.py:78-286,
+    1227-1242) as PNGs every ``debug_every`` frames, plus every keyframe
+    and every rejected frame (red border).  Only a frame that draws copies
+    its image and the landmark store to the host.
     """
-    if debug_dir:
-        raise NotImplementedError(
-            "run_frontend: debug views need viz/painter.py, which "
-            "mqslam_tpu_torch does not have yet")
     if resume_from and loop_closure:
         raise ValueError("resume_from with loop_closure is not supported")
     device = resolve_device(device)
@@ -155,6 +155,8 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
 
     images = iter(images)
     first = np.asarray(next(images), dtype=np.float32)
+    debug = None if not debug_dir else _DebugViews(
+        debug_dir, debug_every, first.shape[:2], cal)
     if resume_from:
         (state, frame_idx, prev_np, poses, accepted_flags, bk,
          rng) = ckpt.load_checkpoint(resume_from, device=device)
@@ -264,6 +266,8 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
                            int(out.reject_code), "?")
                 print(f"frame {frame_idx}: REJECTED ({why}, "
                       f"lost_ratio={float(out.lost_ratio):.2f})")
+            if debug is not None:
+                debug.draw(frame_idx, img, 0, out, state)
             clock.mark("host")
             continue  # prev_pyr stays the last accepted image's
 
@@ -367,6 +371,8 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
             print(f"frame {frame_idx}: acc={acc} "
                   f"tracks={int(out.n_tracks)} "
                   f"H-cond={float(out.homography_condition):.3f}")
+        if debug is not None:
+            debug.draw(frame_idx, img, acc, out, state)
         if (live_update_period and traj_out_file
                 and frame_idx % live_update_period == 0):
             _write_live(state, poses, fps, traj_out_file, map_out_file,
@@ -411,6 +417,50 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
         point_colors=colors, point_groups=groups, ba_data=data,
         n_keyframes=sum(1 for a in accepted_flags if a == 2),
         accepted=accepted_flags, loop_edges=loop_edges)
+
+
+class _DebugViews:
+    """The headless debug views of ``run_frontend``: the Composite 2D/3D
+    painters, drawn every ``every`` frames, on keyframes and on rejected
+    frames, each to ``composite{2d,3d}_{frame:05d}.png``."""
+
+    def __init__(self, out_dir, every, shape, cal):
+        from mqslam_tpu_torch.viz.painter import (Composite2DPainter,
+                                                  Composite3DPainter)
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir, self.every = out_dir, max(every, 1)
+        h0, w0 = shape
+        self.painter2d = Composite2DPainter((w0, h0))
+        # bird's-eye-ish view pulled back along +z (navigable in the
+        # interactive reference; fixed here — headless)
+        P_view = np.eye(4)
+        P_view[2, 3] = 12.0
+        self.painter3d = Composite3DPainter(P_view[:3], (w0, h0))
+        self.K = cam_mod.K_from_cal(cal).cpu().numpy().astype(np.float64)
+        self.dist = cal.as_array()[5:9].cpu().numpy().astype(np.float64)
+        self.neg_fy = float(cal.fy) < 0
+
+    def draw(self, frame_idx, img, status, out, state):
+        """Draw frame ``frame_idx`` (status 0 rejected, 1 tracked, 2
+        keyframe) if it is due; ``out`` is the frame's host output, and
+        ``state`` the tracker state, read only when the frame draws."""
+        if status > 0 and not (status == 2 or frame_idx % self.every == 0):
+            return
+        objp = state.objp.cpu().numpy()
+        groups = state.objp_group.cpu().numpy()
+        colors = state.objp_color.cpu().numpy()
+        n, group_id = int(state.n_objp), int(state.group_id)
+        self.painter2d.draw(np.asarray(img, np.float32), out.rvec, out.tvec,
+                            status, self.K, self.dist, out.cur_uv,
+                            out.track_alive, out.track_triangulated,
+                            out.objp_idx, objp, groups, group_id,
+                            depth_labels=False)
+        self.painter2d.save(os.path.join(
+            self.out_dir, f"composite2d_{frame_idx:05d}.png"))
+        self.painter3d.draw(out.rvec, out.tvec, status, objp[:n],
+                            colors[:n], groups[:n], neg_fy=self.neg_fy)
+        self.painter3d.save(os.path.join(
+            self.out_dir, f"composite3d_{frame_idx:05d}.png"))
 
 
 def _landmarks_of(state):

@@ -5,13 +5,18 @@ trajectory, closed-form init correspondences.  ``build_sequence`` and
 ``build_divergent_fleet`` construct the multi-agent throughput workload:
 A independent agents with distinct textures, start offsets, turn rates and
 velocities, so keyframes de-synchronize across the fleet.
+``chessboard_texture``, ``chessboard_frame``, ``chessboard_scene``,
+``board_view_poses`` and ``build_chessboard_sequence`` make chessboard
+worlds for the calibration path and the chessboard bootstrap.
 """
 
 import numpy as np
 
 __all__ = ["make_texture", "render_plane_sequence", "backproject_to_plane",
            "sequence_poses", "build_sequence", "divergent_fleet_params",
-           "build_divergent_fleet"]
+           "build_divergent_fleet", "chessboard_texture", "chessboard_frame",
+           "chessboard_scene", "board_view_poses",
+           "build_chessboard_sequence"]
 
 
 def make_texture(rng, size=1024, blur_passes=2):
@@ -145,3 +150,111 @@ def build_divergent_fleet(A, n_frames=33, size=(640, 480), f=500.0,
     process pool)."""
     return [build_sequence(**kw) for kw in
             divergent_fleet_params(A, n_frames, size, f, plane_z)]
+
+
+def chessboard_texture(cols, rows, square=32, margin=32):
+    """A board with (cols, rows) INNER corners — (cols + 1) x (rows + 1)
+    squares of gray level 20 and 235, the top-left one dark — on a flat
+    235 margin of ``margin`` pixels: [H, W] float.  Inner corner (c, r) lies at texture
+    coordinate (margin + (c + 1) * square - 0.5, margin + (r + 1) * square
+    - 0.5), pixel centres being integers (``render_plane_sequence``'s
+    sampling)."""
+    h = (rows + 1) * square + 2 * margin
+    w = (cols + 1) * square + 2 * margin
+    tex = np.full((h, w), 235.0)
+    for r in range(rows + 1):
+        for c in range(cols + 1):
+            if (r + c) % 2 == 0:
+                tex[margin + r * square:margin + (r + 1) * square,
+                    margin + c * square:margin + (c + 1) * square] = 20.0
+    return tex
+
+
+def chessboard_frame(square, margin, tex_scale, plane_z, offset=(0, 0)):
+    """The board frame of a ``chessboard_texture`` pasted at texture pixel
+    ``offset`` (x, y) and rendered with ``tex_scale``: (T [4, 4] board ->
+    world, square size in world units).  It is the frame of
+    ``calib.zhang.grid_objp(board, square_size)``: origin at inner corner
+    (0, 0), x along the board's rows (world +y), y along its columns (world
+    +x), z = x cross y (world -z)."""
+    o = (margin + square - 0.5) / tex_scale
+    T = np.eye(4)
+    T[:3, :3] = [[0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, -1.0]]
+    T[:3, 3] = [offset[0] / tex_scale + o, offset[1] / tex_scale + o,
+                plane_z]
+    return T, square / tex_scale
+
+
+def chessboard_scene(board=(8, 6), square=24, margin=48, tex_size=1024,
+                     tex_scale=64.0, plane_z=4.0):
+    """A calibration scene: a ``chessboard_texture`` at the corner of a
+    flat ``tex_size`` texture (wide enough that no second copy of the
+    wrapping texture enters a view from nearby).  Returns (texture, T [4, 4]
+    board -> world, square size in world units, the board's centre in the
+    world: where ``board_view_poses`` aims)."""
+    b = chessboard_texture(board[0], board[1], square, margin)
+    tex = np.full((tex_size, tex_size), 235.0)
+    tex[:b.shape[0], :b.shape[1]] = b
+    T, sq = chessboard_frame(square, margin, tex_scale, plane_z)
+    # the board's columns run along world x, its rows along world y
+    centre = T[:3, 3] + np.array([(board[0] - 1) * sq / 2,
+                                  (board[1] - 1) * sq / 2, 0.0])
+    return tex, T, sq, centre
+
+
+def board_view_poses(rng, n, center, distance, jitter=0.0):
+    """[n, 4, 4] world-to-cam extrinsics of cameras aimed at ``center`` on
+    the z = const plane from ``distance`` away, each tilted by a random
+    angle of 10-30 degrees (random sign) about the camera's x and y axes,
+    plus a roll of at most 5 degrees; the aim point moves by up to
+    ``jitter`` world units in x and y.  Tilted views keep Zhang's system
+    well posed (fronto-parallel ones make it degenerate)."""
+    Ps = []
+    lo, hi = np.deg2rad((10.0, 30.0))
+    for _ in range(n):
+        ax, ay = rng.uniform(lo, hi, 2) * rng.choice([-1.0, 1.0], 2)
+        az = rng.uniform(-1.0, 1.0) * np.deg2rad(5.0)
+        cx, sx = np.cos(ax), np.sin(ax)
+        cy, sy = np.cos(ay), np.sin(ay)
+        cz, sz = np.cos(az), np.sin(az)
+        Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+        Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+        R = Rx @ Ry @ Rz                      # camera -> world
+        aim = np.asarray(center, np.float64).copy()
+        aim[:2] += rng.uniform(-jitter, jitter, 2)
+        c = aim - distance * R[:, 2]
+        P = np.eye(4)
+        P[:3, :3] = R.T
+        P[:3, 3] = -R.T @ c
+        Ps.append(P)
+    return np.stack(Ps)
+
+
+def build_chessboard_sequence(n_frames=33, size=(640, 480), f=500.0,
+                              plane_z=4.0, seed=7, ang_rate=0.05,
+                              vel=(1.2, 0.15, 0.2), tex_scale=64.0,
+                              board=(8, 6), square=20, margin=10,
+                              frames=None):
+    """``build_sequence`` with a ``chessboard_texture`` pasted into the
+    random texture centred on the world origin, where frame 0 (the camera
+    at the origin looking down +z) sees it whole.  The random texture keeps
+    half its contrast about 128, so the board's saddles dominate
+    the response map: ``find_chessboard_corners`` anchors the grid on the
+    extreme candidates and fails when texture saddles pass its relative
+    threshold.  Returns (imgs, P_list, T_board [4, 4] board -> world,
+    square size in world units); ``frames`` (a slice) renders only those
+    frames, as in ``build_sequence``."""
+    tex = 128.0 + 0.5 * (make_texture(np.random.RandomState(seed)) - 128.0)
+    b = chessboard_texture(board[0], board[1], square, margin)
+    bh, bw = b.shape
+    tex[:bh, :bw] = b
+    tex = np.roll(tex, (-(bh // 2), -(bw // 2)), axis=(0, 1))
+    P_list = sequence_poses(n_frames, ang_rate, vel)
+    if frames is not None:
+        P_list = P_list[frames]
+    imgs = render_plane_sequence(P_list, tex, size=size, f=f,
+                                 plane_z=plane_z, tex_scale=tex_scale)
+    T, sq = chessboard_frame(square, margin, tex_scale, plane_z,
+                             offset=(-(bw // 2), -(bh // 2)))
+    return imgs, P_list, T, sq

@@ -18,6 +18,15 @@ import torch.nn.functional as F
 __all__ = ["shi_tomasi_response", "detect_corners", "min_distance_mask"]
 
 
+def _shift(img, dy, dx):
+    """Edge-replicated shift of [..., H, W]: out[y, x] = img[clamp(y + dy),
+    clamp(x + dx)] (the JAX package's pad + static slice)."""
+    H, W = img.shape[-2:]
+    ys = torch.clamp(torch.arange(H, device=img.device) + dy, 0, H - 1)
+    xs = torch.clamp(torch.arange(W, device=img.device) + dx, 0, W - 1)
+    return img.index_select(-2, ys).index_select(-1, xs)
+
+
 def _sep3(img, kx, ky):
     """Separable 3-tap filter via edge-replicated shifted adds."""
     H, W = img.shape[-2:]

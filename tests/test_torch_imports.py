@@ -48,8 +48,14 @@ def test_slice_modules_present():
               "parallel.sharded_ba", "parallel.multihost", "parallel.fleet",
               "parallel.dryrun", "cli.collab_demo", "ops.matching",
               "ops.fast", "ops.orb", "frontend.loopclosure", "ba.posegraph",
-              "frontend.checkpoint", "cli.loop_demo"):
+              "frontend.checkpoint", "cli.loop_demo", "ops.chessboard",
+              "calib", "calib.zhang", "calib.epipolar", "calib.relative",
+              "calib.undistort", "calib.realtime", "viz", "viz.colors",
+              "viz.draw", "viz.ply", "viz.painter", "viz.html_viewer",
+              "cli.calibrate"):
         assert "mqslam_tpu_torch." + m in mods, m
+    from mqslam_tpu_torch.ops import features
+    assert callable(features._shift)
     for f in ("lk_level.cu", "lk_strip.cu", "lk_track.cuh", "extract.cu",
               "lk_iterate.cu"):
         assert os.path.exists(os.path.join(PKG, "csrc", f))

@@ -10,6 +10,8 @@ and 2D-point counts per frame, and the landmark count, within 3 (a track at
 an error or reprojection gate may fall on either side).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,8 +34,21 @@ CAL9 = np.array([F, F, 0, SIZE[0] / 2, SIZE[1] / 2, 0, 0, 0, 0], np.float32)
 N_FRAMES, SEED = 10, 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the tier-1 command's parallel workers,
+    torch's default threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+DEBUG_EVERY = 4
+
+
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     imgs, P_list, *_ = tsyn.build_sequence(
         n_frames=N_FRAMES, size=SIZE, f=F, plane_z=PLANE_Z, seed=7,
         ang_rate=0.03, vel=(0.5, 0.05, 0.1))
@@ -45,9 +60,11 @@ def runs():
     ).astype(np.float32)
     jcfg = jtrk.TrackerConfig(max_tracks=128, target_keypoints=100)
     tcfg = convert.config_from_jax(jcfg)
+    jdebug = str(tmp_path_factory.mktemp("jax_debug"))
     jres = jrunner.run_frontend(
         list(imgs), jcam.Cal3DS2.from_array(jnp.asarray(CAL9)), jcfg, uv,
-        objp, seed=SEED, t0=1 / 30.0)
+        objp, seed=SEED, t0=1 / 30.0, debug_dir=jdebug,
+        debug_every=DEBUG_EVERY)
     scores = ransac_scores_from_keys(
         [jax.random.PRNGKey(SEED)], N_FRAMES - 1, jcfg.ransac_hypotheses,
         jcfg.max_tracks)[:, 0]
@@ -58,7 +75,7 @@ def runs():
         device="cpu", stage_ms=stage_ms)
     return dict(jres=jres, tres=tres, imgs=imgs, P_list=P_list, uv=uv,
                 objp=objp, tcal=tcal, tcfg=tcfg, scores=scores,
-                stage_ms=stage_ms)
+                stage_ms=stage_ms, jdebug=jdebug)
 
 
 def test_accepted_and_keyframes(runs):
@@ -162,14 +179,51 @@ def test_live_update_writes_files(runs, tmp_path):
     assert len(tpcd.load_pcd(mp)[0]) >= 64
 
 
-@pytest.mark.parametrize("kw, needs", [
-    (dict(debug_dir="x"), "painter"),
-])
-def test_unported_options_raise(runs, kw, needs):
-    with pytest.raises(NotImplementedError, match=needs):
-        trunner.run_frontend(
-            list(runs["imgs"][:2]), runs["tcal"], runs["tcfg"], runs["uv"],
-            runs["objp"], device="cpu", **kw)
+def test_debug_views_match_the_jax_runner(runs, tmp_path):
+    """The same PNGs as the JAX runner (every DEBUG_EVERY-th frame and every
+    keyframe), and the trajectory bit-equal to the run without views."""
+    from PIL import Image
+    dbg = str(tmp_path / "dbg")
+    res = trunner.run_frontend(
+        list(runs["imgs"]), runs["tcal"], runs["tcfg"], runs["uv"],
+        runs["objp"], ransac_scores=runs["scores"], t0=1 / 30.0,
+        debug_dir=dbg, debug_every=DEBUG_EVERY, device="cpu")
+    names = sorted(os.listdir(dbg))
+    assert names == sorted(os.listdir(runs["jdebug"]))
+    due = [f for f, a in enumerate(res.accepted)
+           if f > 0 and (a != 1 or f % DEBUG_EVERY == 0)]
+    assert names == sorted(f"composite{k}d_{f:05d}.png" for f in due
+                           for k in (2, 3))
+    assert len(due) > N_FRAMES // DEBUG_EVERY         # keyframes drew too
+    assert res.accepted == runs["tres"].accepted
+    for a, b in zip(res.poses, runs["tres"].poses):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(res.points3d, runs["tres"].points3d)
+    for n in names:
+        im = np.asarray(Image.open(os.path.join(dbg, n)))
+        assert im.shape == (SIZE[1], SIZE[0], 3) and im.max() > 0
+
+
+def test_debug_view_of_a_rejected_frame(runs, tmp_path):
+    """A blank frame is rejected (its tracks are lost) and drawn with the
+    red border whatever ``debug_every`` says; the run goes on from the
+    last accepted frame."""
+    from PIL import Image
+    imgs = list(runs["imgs"][:4])
+    imgs.insert(2, np.full_like(imgs[0], 128.0))
+    dbg = str(tmp_path / "dbg")
+    res = trunner.run_frontend(
+        imgs, runs["tcal"], runs["tcfg"], runs["uv"], runs["objp"],
+        generator=torch.Generator().manual_seed(0), collect_ba=False,
+        debug_dir=dbg, debug_every=100, device="cpu")
+    assert res.accepted[2] == 0 and res.poses[2] is None
+    assert all(a > 0 for i, a in enumerate(res.accepted) if i != 2)
+    im = np.asarray(Image.open(os.path.join(dbg, "composite2d_00002.png")))
+    assert (im[0, :, 0] == 255).all() and (im[0, :, 1] == 0).all()
+    assert os.path.exists(os.path.join(dbg, "composite3d_00002.png"))
+    for f, a in enumerate(res.accepted):
+        drew = os.path.exists(os.path.join(dbg, f"composite2d_{f:05d}.png"))
+        assert drew == (f > 0 and a != 1)
 
 
 def test_needs_a_cuda_device_by_default(runs, monkeypatch):

@@ -1,7 +1,8 @@
 """The port's command line over files, on the CPU: 8-bit PNG frames,
-``camera_intrinsics.txt``, ``init_pose.txt`` and ``init_points.pcd`` in, a
-TUM trajectory, a PCD map and a ``BA_info.*`` dump out; the outputs load back
-through BOTH packages' ``io``.  320x240, 128 tracks, 7 frames."""
+``camera_intrinsics.txt``, ``init_pose.txt`` and ``init_points.pcd`` (or a
+chessboard in frame 0) in, a TUM trajectory, a PCD map and a ``BA_info.*``
+dump (and debug views) out; the outputs load back through BOTH packages'
+``io``.  320x240, 128 tracks, 7 frames."""
 
 import os
 import subprocess
@@ -22,6 +23,16 @@ from mqslam_tpu_torch.ops import features as tfeat
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F, SIZE, PLANE_Z, N_FRAMES = 250.0, (320, 240), 4.0, 7
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the tier-1 command's parallel workers,
+    torch's default threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -105,16 +116,84 @@ def test_cli_max_frames_and_quiet(dataset, tmp_path, capsys):
         tmp_path / "traj_out.cam0-mqslam.txt").timestamps) == 3
 
 
-@pytest.mark.parametrize("flags, word", [
-    (["--init-chessboard", "8x6"], "chessboard"),
-    (["--debug-dir", "dbg"], "painter"),
-])
-def test_cli_unported_options_exit_with_a_message(dataset, tmp_path, capsys,
-                                                  flags, word):
-    assert run_cli(dataset, tmp_path, *flags) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and word in err
-    assert not os.listdir(tmp_path)
+@pytest.fixture(scope="module")
+def board_dataset(tmp_path_factory):
+    """A board sequence: an 8x6 chessboard in the random texture where
+    frame 0 sees it whole, 8-bit PNG frames, no init files."""
+    from PIL import Image
+    d = tmp_path_factory.mktemp("board_seq")
+    imgs, P_list, T_board, sq = tsyn.build_chessboard_sequence(
+        n_frames=N_FRAMES, size=SIZE, f=F, plane_z=PLANE_Z, seed=7,
+        ang_rate=0.03, vel=(0.35, 0.035, 0.07))
+    os.makedirs(d / "frames")
+    for i, im in enumerate(np.clip(np.rint(imgs), 0, 255).astype(np.uint8)):
+        Image.fromarray(im).save(d / "frames" / f"frame-{i}.png")
+    K = np.array([[F, 0, SIZE[0] / 2], [0, F, SIZE[1] / 2], [0, 0, 1]])
+    tintr.save_camera_intrinsics(d / "camera_intrinsics.txt", K,
+                                 np.zeros(5), SIZE)
+    # ground-truth camera centres in the board's frame (grid_objp's)
+    Tinv = np.linalg.inv(T_board)
+    centres = np.stack([Tinv[:3, :3] @ (-(P[:3, :3].T @ P[:3, 3]))
+                        + Tinv[:3, 3] for P in P_list])
+    return dict(dir=d, sq=sq, centres=centres)
+
+
+def run_board_cli(ds, out, *extra):
+    d = ds["dir"]
+    return slam_run.main([
+        str(d / "frames"), str(d / "camera_intrinsics.txt"),
+        "--init-chessboard", "8x6", "--square-size", repr(ds["sq"]),
+        "--traj-out", str(out / "traj.txt"), "--map-out",
+        str(out / "map.pcd"), "--ba-info-dir", str(out), "--max-tracks",
+        "128", "--target-keypoints", "100", "--device", "cpu", *extra])
+
+
+def test_cli_init_chessboard(board_dataset, tmp_path, capsys):
+    """Frame 0's board corners (the JAX detector's, within 1e-3 px) are the
+    bootstrap; the trajectory follows the ground truth in the board's
+    frame."""
+    from mqslam_tpu.ops import chessboard as jcb
+    from mqslam_tpu_torch.io import images
+    assert run_board_cli(board_dataset, tmp_path) == 0
+    said = capsys.readouterr().out
+    assert "init: 48 chessboard corners detected" in said
+    assert f"done: {N_FRAMES}/{N_FRAMES} frames accepted" in said
+    frame0 = images.load_image_gray(
+        board_dataset["dir"] / "frames" / "frame-0.png")
+    ok, want = jcb.find_chessboard_corners(frame0, (8, 6))
+    assert ok
+    dt = tba.load_ba_data(str(tmp_path), "mqslam", nr_cameras=1, fps=30)
+    np.testing.assert_allclose(dt.points2D[0][0][:48], want, rtol=0,
+                               atol=1e-3)
+    traj = ttum.load_trajectory(tmp_path / "traj.txt")
+    assert np.abs(traj.locations - board_dataset["centres"]).max() < 0.03
+    # the board's corners are the map's first landmarks, on its plane
+    pts = tpcd.load_pcd(tmp_path / "map.pcd")[0]
+    np.testing.assert_allclose(pts[:48, 2], 0.0, atol=1e-6)
+
+
+def test_cli_debug_dir(board_dataset, tmp_path, capsys):
+    """``--debug-dir`` with ``--debug-every``: PNGs on the frames the JAX
+    runner draws (every 4th, keyframes, rejections), and a trajectory
+    file byte-equal to the run without views."""
+    plain, dbg = tmp_path / "plain", tmp_path / "dbg"
+    os.makedirs(plain)
+    os.makedirs(dbg)
+    assert run_board_cli(board_dataset, plain, "--quiet") == 0
+    assert run_board_cli(board_dataset, dbg, "--quiet", "--debug-dir",
+                         str(dbg / "views"), "--debug-every", "4") == 0
+    for f in ("traj.txt", "map.pcd"):
+        assert (dbg / f).read_bytes() == (plain / f).read_bytes()
+    dt = tba.load_ba_data(str(dbg), "mqslam", nr_cameras=1, fps=30)
+    kf = {f for f in range(N_FRAMES) if dt.odometry[f]}
+    stamps = ttum.load_trajectory(dbg / "traj.txt").timestamps
+    kept = set(np.rint(stamps * 30.0).astype(int) - 1)
+    due = {f for f in range(1, N_FRAMES)
+           if f % 4 == 0 or f in kf or f not in kept}
+    names = sorted(os.listdir(dbg / "views"))
+    assert names == sorted(f"composite{k}d_{f:05d}.png" for f in due
+                           for k in (2, 3))
+    assert kf - {f for f in due if f % 4 == 0}      # a keyframe drew too
 
 
 def test_cli_needs_init_and_images(dataset, tmp_path, capsys):

@@ -22,6 +22,16 @@ CAL9 = np.array([F, F, 0, SIZE[0] / 2, SIZE[1] / 2, 0, 0, 0, 0], np.float32)
 N_FRAMES = 7
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the tier-1 command's parallel workers,
+    torch's default threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_state_fields(state):
     return {k: np.asarray(v) for k, v in state._asdict().items()
             if k != "key"}
