@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
-``nvcc``, PIL for the command-line phase, the repo's ``artifacts/icl_r5b``
-dump, and nothing else; imports only ``mqslam_tpu_torch``.  It
+``nvcc``, PIL for the command-line phase, SciPy, the repo's
+``artifacts/icl_r5b`` dump and study goldens, and nothing else; imports only
+``mqslam_tpu_torch``.  It
 
   1. builds every kernel under ``mqslam_tpu_torch/csrc/`` from source and
      fails if ptxas spilled registers in any of them,
@@ -87,9 +88,20 @@ dump, and nothing else; imports only ``mqslam_tpu_torch``.  It
      renderer's and the CPU's), ``undistort_image`` card against CPU, and
      ``slam_run --init-chessboard 8x6`` over a 49-frame board sequence
      without and with ``--debug-dir --debug-every 10`` (K2's launches
-     counted; outputs byte-equal; ATE; the debug PNGs).  The ``kernels``
-     line comes last but one: each kernel's launches summed over the paths
-     it runs on, path by path beside.
+     counted; outputs byte-equal; ATE; the debug PNGs).
+ 14. drives the last slice (``studies``): the triangulation study at its
+     defaults through ``studies.triangulation_comparison.main`` (5
+     trajectories x 40 poses x 10 trials x 257 points x 4 methods; 5 x 3
+     noise types x 40 sigmas), its ``.mat`` files held against the
+     checked-in goldens ``artifacts/test_1and2.mat`` / ``test_3.mat``, and
+     trajectory 4 card against CPU; the rolling-shutter study on 60
+     jittering 1280x720 frames (K2's launches counted: 3 x 59) card
+     against CPU; ``datasets.svo.initialize_from_plane`` card against
+     CPU; ``utils.profiling``'s ``Timer`` against CUDA events and its
+     Chrome trace; ``native``'s decoder against PIL (reported as not run
+     where the machine lacks g++ or the libpng / libjpeg headers).  The
+     ``kernels`` line comes last but one: each kernel's launches summed
+     over the paths it runs on, path by path beside.
 
 Every phase must pass; the last line of the output is
 ``{"ok": true, "device": {...}}``.  One JSON object per line before it.
@@ -2855,6 +2867,404 @@ def phase_calibration(boards, device):
     return rec, k2
 
 
+# ---------------------------------------------------------------- studies --
+
+ARTIFACTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "artifacts")
+RS_SEQ = dict(n_frames=60, size=(1280, 720), f=1000.0, plane_z=4.0,
+              tex_scale=128.0, seed=11, roll=2.7e-3, pan=3e-4)
+# a camera at rest before the textured plane that jitters by small random
+# rotations (roll up to 2.7e-3 rad, pan and tilt up to 3e-4): the image moves
+# by 0.2-2 px, by more at the top and bottom rows than in the middle, so the
+# rolling-shutter study's deviation classes <= 0.5, <= 1 and <= 3 px all hold
+# tracks (test data for the study, as the reference's was a static scene)
+
+
+def jitter_poses(n, seed, roll, pan):
+    """Extrinsics [n, 4, 4]: frame 0 at rest, then random small rotations
+    about the camera centre (pan, tilt up to ``pan``, roll up to ``roll``
+    rad)."""
+    from mqslam_tpu_torch.core import so3
+    rng = np.random.RandomState(seed)
+    r = np.stack([rng.uniform(-pan, pan, n), rng.uniform(-pan, pan, n),
+                  rng.uniform(-roll, roll, n)], axis=1)
+    r[0] = 0.0
+    P = np.tile(np.eye(4), (n, 1, 1))
+    P[:, :3, :3] = so3.exp(torch.tensor(r)).numpy()
+    return P
+
+
+def _render_rs(frames):
+    """A slice of the jittering camera's frames (worker process)."""
+    from mqslam_tpu_torch.frontend import synthetic
+    c = RS_SEQ
+    tex = synthetic.make_texture(np.random.RandomState(c["seed"]))
+    P = jitter_poses(c["n_frames"], c["seed"], c["roll"], c["pan"])[frames]
+    return synthetic.render_plane_sequence(P, tex, size=c["size"], f=c["f"],
+                                           plane_z=c["plane_z"],
+                                           tex_scale=c["tex_scale"])
+
+
+def render_studies(workers=8):
+    """The rolling-shutter study's 60 frames, rendered in worker
+    processes."""
+    n = RS_SEQ["n_frames"]
+    cuts = [slice(i, min(i + 10, n)) for i in range(0, n, 10)]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers,
+                                                mp_context=ctx) as pool:
+        return np.concatenate(list(pool.map(_render_rs, cuts)))
+
+
+def loadmat(path):
+    import scipy.io as sio
+    return {k: v for k, v in sio.loadmat(path).items()
+            if not k.startswith("__")}
+
+
+def rel_err(a, b):
+    """|a - b| / |b| where both are finite, else 0."""
+    both = np.isfinite(a) & np.isfinite(b)
+    a, b = np.where(both, a, 0.0), np.where(both, b, 0.0)
+    return np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+
+
+def far_poses(tc, traj, poses):
+    """[poses] bool: baseline at least that of pose 12 of the study's 40
+    on the same trajectory (below it the study is roundoff-chaotic, in the
+    JAX package too)."""
+    def baseline(sw, tw, an):
+        P = tc.StudyCamera.pose(40.0, sw, tw, an)
+        return np.linalg.norm(-P[:, :3].T @ P[:, 3] - [0.0, 0.0, -40.0])
+    keys = ("sideways_values", "towards_values", "angle_values")
+    ref = tc.make_trajectories()[traj]
+    b12 = baseline(*(ref[k][12] for k in keys))
+    return np.array([baseline(*v) >= b12 - 1e-9
+                     for v in zip(*(poses[k] for k in keys))])
+
+
+def hold_1and2(got, want, far, what, ls_flips=None):
+    """Test 1 and 2's bounds (about twice the JAX package's own CPU run's
+    distance from the goldens): the non-finite pattern of err3D_mean,
+    err3D_median, false_pos, false_neg and p_err3D_median equal; at the
+    far poses, where both are finite, err3D_mean 1e-2 relative,
+    err3D_median, err2D_mean, err2D_median 2e-2, false_pos / false_neg
+    5e-3 absolute; p_err3D_median (the last pose) 2e-2, without the points
+    in ``ls_flips`` [traj, point] for linear LS.  ``got`` / ``want``: the
+    .mat variables.  Returns the largest distance of each."""
+    s = lambda d, k: np.asarray(d[k + "_summary"], dtype=np.float64)
+    for k in ("err3D_mean", "err3D_median", "false_pos", "false_neg",
+              "p_err3D_median"):
+        require(np.array_equal(np.isfinite(s(got, k)),
+                               np.isfinite(s(want, k))),
+                f"{what}: {k}'s non-finite entries differ")
+    out = {}
+    for k, tol in (("err3D_mean", 1e-2), ("err3D_median", 2e-2),
+                   ("err2D_mean", 2e-2), ("err2D_median", 2e-2)):
+        out[k] = float(rel_err(s(got, k), s(want, k))[far].max())
+        require(out[k] <= tol, f"{what}: {k} {out[k]} > {tol} relative")
+    for k in ("false_pos", "false_neg"):
+        out[k] = float(np.abs(s(got, k) - s(want, k))[far].max())
+        require(out[k] <= 5e-3, f"{what}: {k} {out[k]} > 5e-3")
+    r = rel_err(s(got, "p_err3D_median"), s(want, "p_err3D_median"))
+    if ls_flips is not None:
+        r[:, 1] = np.where(ls_flips, 0.0, r[:, 1])
+    out["p_err3D_median"] = float(r.max())
+    require(out["p_err3D_median"] <= 2e-2,
+            f"{what}: p_err3D_median {out['p_err3D_median']} > 2e-2")
+    return out
+
+
+def hold_3(got, want, what):
+    """Test 3's bounds, at sigma index >= 1 (sigma = 0 is chaotic):
+    err3D_median 2e-2 relative, false_pos / false_neg 2e-2 absolute."""
+    s = lambda d, k: np.asarray(d[k + "_summary"],
+                                dtype=np.float64)[:, :, 1:]
+    out = {"err3D_median": float(rel_err(s(got, "err3D_median"),
+                                         s(want, "err3D_median")).max())}
+    for k in ("false_pos", "false_neg"):
+        out[k] = float(np.abs(s(got, k) - s(want, k)).max())
+    for k, v in out.items():
+        require(v <= 2e-2, f"{what}: {k} {v} > 2e-2")
+    return out
+
+
+def ls_flips(tc, P2, devices):
+    """[points] bool: at pose P2 of the study's scene, points where one
+    trial's linear-LS solution differs by > 1e-2 between ``devices`` (the
+    pseudo-inverse dropped an eigen-direction on one side and kept it on
+    the other: the eigenvalue lies at rcond * |w|max, roundoff's choice)."""
+    from mqslam_tpu_torch.ops import triangulation as tri
+    params = tc.StudyParams()
+    pts = tc.finite_points(4)
+    cam = tc.StudyCamera(params.cam_resolution, params.cam_k1)
+    P1 = tc.StudyCamera.pose(40.0)
+    Z1, Z2 = tc._noise_basis(len(pts))
+    xs = []
+    for dev in devices:
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+        s = torch.tensor(0.8, device=dev)
+        un = [tc._normalize_obs(torch.round(t(cam.project_exact(pts, P))[None]
+                                            + s * t(Z)),
+                                cam.f, tuple(cam.c), cam.k1)
+              for P, Z in ((P1, Z1), (P2, Z2))]
+        xs.append(tri.linear_ls(un[0], t(P1), un[1], t(P2))[0].cpu().numpy())
+    return (np.abs(xs[0] - xs[1]).max(-1) > 1e-2).any(0)
+
+
+def study_call(tc, traj, device):
+    """The study's device function's arguments for test 1 and 2 on one
+    trajectory, on ``device``: (fn, args) with ``fn(*args)`` the call."""
+    params = tc.StudyParams()
+    pts = tc.finite_points(4)
+    cam = tc.StudyCamera(params.cam_resolution, params.cam_k1)
+    P1 = tc.StudyCamera.pose(40.0)
+    P2s = np.stack([tc.StudyCamera.pose(40.0, *v) for v in zip(
+        traj["sideways_values"], traj["towards_values"],
+        traj["angle_values"])])
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(device)
+    Z1, Z2 = tc._noise_basis(len(pts))
+    args = (t(cam.project_exact(pts, P1)),
+            t(np.stack([cam.project_exact(pts, P) for P in P2s])), t(Z1),
+            t(Z2), t(np.full(len(P2s), 0.8)), t(P1), t(P2s)[:, None],
+            t(pts[:, :3]), cam.f, tuple(cam.c), cam.k1, True)
+    return tc._eval_traj_summaries, args
+
+
+def phase_studies(rs_imgs, device):
+    """The last slice on the card.  (a) The triangulation study at its
+    defaults through ``main(["--out-dir", tmp])`` (test 1 and 2: 5
+    trajectories x 40 poses x 10 trials x 257 points x 4 methods; test 3: 5
+    trajectories x 3 noise types x 40 sigmas), both ``.mat`` files held
+    against ``artifacts/test_1and2.mat`` / ``test_3.mat`` on what the JAX
+    package's own CPU run reproduces (``hold_1and2``, ``hold_3``).  (b)
+    Trajectory 4 (the circle) at 257 points, card against CPU, the same
+    rules.  (c) The rolling-shutter study on 60 jittering 1280x720 frames,
+    256 tracks, K2's launches counted (3 x 59), card against CPU: the same
+    tracks alive, deviations 2e-3 px, classes equal but for tracks within
+    2e-3 px of a class edge.  (d) ``svo.initialize_from_plane`` on frame 0,
+    100 features, card against CPU: count and uv equal, objp 1e-4; the
+    points reproject onto uv within 1e-2 px.  (e) ``utils.profiling``: a
+    ``Timer`` around the study's device call reads at least its CUDA-event
+    time; ``trace`` writes a non-empty Chrome trace.  (f) ``native``: PNGs
+    and a JPEG of the frames decoded against PIL, ``ImageSequence``'s
+    order; without g++ or libpng / libjpeg headers, reported as not run.
+    Returns (record, K2 launches)."""
+    from mqslam_tpu_torch import convert, native
+    from mqslam_tpu_torch.core import camera
+    from mqslam_tpu_torch.datasets import svo
+    from mqslam_tpu_torch.ops import lk_fused
+    from mqslam_tpu_torch.studies import rolling_shutter as rs
+    from mqslam_tpu_torch.studies import triangulation_comparison as tc
+    from mqslam_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    rec = {}
+
+    # (a) the study at its defaults, against the goldens
+    t_dev = tc._timer_total
+    with tempfile.TemporaryDirectory() as d:
+        sec, _ = host_seconds(lambda: quiet(tc.main, ["--out-dir", d]))
+        got12 = loadmat(os.path.join(d, "test_1and2.mat"))
+        got3 = loadmat(os.path.join(d, "test_3.mat"))
+    want12 = loadmat(os.path.join(ARTIFACTS, "test_1and2.mat"))
+    want3 = loadmat(os.path.join(ARTIFACTS, "test_3.mat"))
+    for got, want in ((got12, want12), (got3, want3)):
+        require(got.keys() == want.keys(), "study: .mat variables differ")
+        for k in want:
+            require(np.shape(got[k]) == np.shape(want[k]),
+                    f"study: {k} shape {np.shape(got[k])} vs "
+                    f"{np.shape(want[k])}")
+    trajs = tc.make_trajectories()
+    far = np.stack([far_poses(tc, i, t) for i, t in enumerate(trajs)])
+    rec["goldens"] = dict(
+        test_1and2=hold_1and2(got12, want12, far, "study vs goldens"),
+        test_3=hold_3(got3, want3, "study vs goldens"),
+        main_seconds=sec, timer_total_s=tc._timer_total - t_dev,
+        device_calls=len(trajs) * 4, far_poses=int(far.sum()))
+    log(f"studies: study vs goldens {rec['goldens']}")
+
+    # (b) trajectory 4, card against CPU
+    t4 = trajs[4]
+    runs = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        runs[name] = host_seconds(lambda: tc.test_1and2(
+            [t4], filename=None, verbose=False, device=dev))
+    P2_end = tc.StudyCamera.pose(40.0, t4["sideways_values"][-1],
+                                 t4["towards_values"][-1],
+                                 t4["angle_values"][-1])
+    flips = ls_flips(tc, P2_end, (device, torch.device("cpu")))
+    require(flips.sum() <= 5, f"study: linear LS differs card vs CPU at "
+                              f"{int(flips.sum())} of 257 points")
+    rec["card_vs_cpu"] = dict(
+        trajectory=4, points=257, poses=40,
+        held=hold_1and2(runs["card"][1], runs["cpu"][1], far[4:5],
+                        "study card vs CPU", flips[None]),
+        linear_ls_rank_flips=int(flips.sum()),
+        seconds={k: v[0] for k, v in runs.items()})
+    log(f"studies: trajectory 4 card vs CPU {rec['card_vs_cpu']}")
+
+    # (c) the rolling-shutter study
+    n = len(rs_imgs)
+    frames = list(rs_imgs)
+    lk_fused.launches = 0
+    sec, st = host_seconds(lambda: rs.analyze_sequence(
+        frames, max_tracks=256, device=device))
+    k2 = lk_fused.launches
+    require(k2 == 3 * (n - 1), f"rolling shutter: K2 launched {k2} times, "
+                               f"expected {3 * (n - 1)}")
+    cpu_sec, st_cpu = host_seconds(lambda: rs.analyze_sequence(
+        frames, max_tracks=256, device="cpu"))
+    require(st.deviations_x.shape == st_cpu.deviations_x.shape,
+            f"rolling shutter: {st.deviations_x.shape[1]} tracks alive on "
+            f"the card, {st_cpu.deviations_x.shape[1]} on the CPU")
+    d_dev = max(float(np.abs(st.deviations_x - st_cpu.deviations_x).max()),
+                float(np.abs(st.deviations_y - st_cpu.deviations_y).max()))
+    require(d_dev <= 2e-3, f"rolling shutter: deviations differ by {d_dev}")
+    edges = np.array([0.0, 0.5, 1.0, 3.0])
+    mx = np.abs(np.stack([st.deviations_x, st_cpu.deviations_x])).max(1)
+    my = np.abs(np.stack([st.deviations_y, st_cpu.deviations_y])).max(1)
+    near = ((np.abs(mx[..., None] - edges).min(-1) <= 2e-3)
+            | (np.abs(my - 3.0) <= 2e-3)).any(0)
+    moved = 0
+    for k, idx in st.classes.items():
+        diff = np.setxor1d(idx, st_cpu.classes[k])
+        require(near[diff].all(), f"rolling shutter: class {k} differs "
+                                  f"away from its edges: {diff}")
+        moved += len(diff)
+    sizes = {k: len(v) for k, v in st.classes.items()}
+    require(sum(v > 0 for v in sizes.values()) >= 3 and sizes["zero"] == 0,
+            f"rolling shutter: classes {sizes}: the jitter must populate "
+            f"three")
+    rec["rolling_shutter"] = dict(
+        frames=n, size=list(RS_SEQ["size"]), max_tracks=256,
+        tracks_alive=st.deviations_x.shape[1], classes=sizes,
+        stds=st.stds, max_dev_px=float(mx[0].max()),
+        card_vs_cpu_max_dev_diff_px=d_dev, class_moves_at_edges=moved,
+        seconds=sec, frames_per_s=n / sec, cpu_seconds=cpu_sec,
+        launches={"lk_strip": k2})
+    log(f"studies: rolling shutter {rec['rolling_shutter']}")
+
+    # (d) SVO plane initialisation
+    f, (w, h) = RS_SEQ["f"], RS_SEQ["size"]
+    c9 = [f, f, 0.0, w / 2, h / 2, 0, 0, 0, 0]
+    out = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        cal = convert.cal_from_numpy(c9, device=dev)
+        out[name] = host_seconds(lambda: svo.initialize_from_plane(
+            rs_imgs[0], np.eye(4), cal, target_features=100,
+            plane_z=RS_SEQ["plane_z"], device=dev))
+    (uv, objp), (uv_c, objp_c) = out["card"][1], out["cpu"][1]
+    require(len(uv) == len(uv_c) and np.array_equal(uv, uv_c),
+            f"svo: {len(uv)} corners on the card, {len(uv_c)} on the CPU")
+    d_obj = float(np.abs(objp - objp_c).max())
+    require(d_obj <= 1e-4, f"svo: objp differs by {d_obj}")
+    cal = convert.cal_from_numpy(c9, device="cpu")
+    proj, depth = camera.project(torch.tensor(objp),
+                                 torch.eye(4, dtype=torch.float32), cal)
+    d_uv = float(np.abs(proj.numpy() - uv).max())
+    require(d_uv <= 1e-2 and bool((depth > 0).all()),
+            f"svo: the points reproject {d_uv} px from their corners")
+    rec["svo"] = dict(target_features=100, features=len(uv),
+                      objp_card_vs_cpu=d_obj, reprojection_px=d_uv,
+                      seconds={k: v[0] for k, v in out.items()})
+    log(f"studies: svo {rec['svo']}")
+
+    # (e) the timer and the trace around the study's device call
+    fn, args = study_call(tc, t4, device)
+    profiling.sync(fn(*args))                                 # warm
+    timer = profiling.Timer("study")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    timer.start()
+    ev[0].record()
+    res = fn(*args)
+    ev[1].record()
+    timer.stop(res)
+    ev_ms = ev[0].elapsed_time(ev[1])
+    require(timer.total * 1e3 >= ev_ms,
+            f"Timer read {timer.total * 1e3} ms, the events {ev_ms} ms")
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d) as prof:
+            profiling.sync(fn(*args))
+        files = os.listdir(d)
+        require(len(files) == 1, f"trace wrote {files}")
+        with open(os.path.join(d, files[0])) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    require(len(events) > 0, "trace: an empty Chrome trace")
+    device_us = sum(e.device_time_total for e in prof.key_averages()
+                    if e.key.startswith("aten::"))
+    rec["profiling"] = dict(timer_ms=timer.total * 1e3, event_ms=ev_ms,
+                            trace_events=len(events),
+                            trace_kernel_events=kernels,
+                            trace_aten_device_us=device_us)
+
+    # (f) native decoding
+    try:
+        native.build()
+        if not native.available():
+            native.decode_gray(os.devnull)     # raises with the load error
+        err = None
+    except RuntimeError as e:
+        err = str(e)
+    if err is not None:
+        rec["native"] = dict(available=False, ran=False, error=err[-2000:])
+        log(f"studies: native NOT RUN: {err}")
+    else:
+        rec["native"] = hold_native(native, rs_imgs[:4])
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"studies: {rec['profiling']}, native {rec['native']}, "
+        f"{rec['seconds']:.1f} s")
+    return rec, k2
+
+
+def hold_native(native, frames):
+    """The frames as 8-bit gray PNGs (exactly PIL's grayscale), one as an
+    RGB PNG (within 1 level: the same BT.601 luma, rounded apart) and as a
+    JPEG (mean within 4 levels); ``ImageSequence`` in order."""
+    from PIL import Image
+    from mqslam_tpu_torch.io import images
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i, im in enumerate(frames):
+            p = os.path.join(d, f"frame-{i}.png")
+            Image.fromarray(np.clip(np.rint(im), 0, 255).astype(np.uint8),
+                            mode="L").save(p)
+            paths.append(p)
+        g = np.clip(np.rint(frames[0]), 0, 255).astype(np.uint8)
+        rgb = np.stack([g, np.roll(g, 7, 0), 255 - g], axis=-1)
+        Image.fromarray(rgb).save(os.path.join(d, "rgb.png"))
+        Image.fromarray(rgb).save(os.path.join(d, "rgb.jpg"), quality=95)
+        for p in paths:
+            require(np.array_equal(native.decode_gray(p),
+                                   images.load_image_gray(p)),
+                    f"native: {p} differs from PIL's")
+        d_rgb = float(np.abs(native.decode_gray(os.path.join(d, "rgb.png"))
+                             - images.load_image_gray(
+                                 os.path.join(d, "rgb.png"))).max())
+        d_jpg = float(np.abs(native.decode_gray(os.path.join(d, "rgb.jpg"))
+                             - images.load_image_gray(
+                                 os.path.join(d, "rgb.jpg"))).mean())
+        require(d_rgb <= 1.0 and d_jpg < 4.0,
+                f"native: RGB PNG {d_rgb}, JPEG mean {d_jpg} levels")
+        seq = native.ImageSequence(paths, queue_depth=2)
+        got = list(seq)
+        seq.close()
+        require(len(got) == len(paths) and all(
+            np.array_equal(a, native.decode_gray(p))
+            for a, p in zip(got, paths)), "native: ImageSequence order")
+        ms = {}
+        for name, dec in (("native", native.decode_gray),
+                          ("pil", images.load_image_gray)):
+            t0 = time.perf_counter()
+            for p in paths:
+                dec(p)
+            ms[name] = (time.perf_counter() - t0) * 1e3 / len(paths)
+    return dict(available=True, ran=True, pngs=len(paths),
+                rgb_png_max_diff=d_rgb, jpeg_mean_diff=d_jpg,
+                ms_per_1280x720_png=ms)
+
+
 def registers(nvcc_log):
     """({kernel entry: registers}, {kernel entry: spill bytes stored +
     loaded}) from ``nvcc -Xptxas -v`` output."""
@@ -2891,12 +3301,14 @@ def main():
 
     log("rendering the 16-agent fleet, the single agent and the "
         "calibration scenes (host, NumPy) while nvcc runs")
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
         build = ex.submit(csrc.build_all)
         boards = ex.submit(render_calibration)
+        rs_imgs = ex.submit(render_studies)
         seqs, single = render_all(16, 33, (640, 480), 500.0, single=SINGLE)
         logs = build.result()
         boards = boards.result()
+        rs_imgs = rs_imgs.result()
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
     ptxas = {k: registers(v) for k, v in logs.items()}
@@ -2980,13 +3392,18 @@ def main():
             "--init-chessboard --debug-dir)")
         calib, k2_cal = phase_calibration(boards, device)
         emit({"calibration": calib})
+        log("phase studies (triangulation study, rolling shutter, SVO "
+            "init, profiling, native decoding)")
+        studies, k2_st = phase_studies(rs_imgs, device)
+        emit({"studies": studies})
         # each path's launches, counted from 0 just before it
         k1["launches_by_path"] = {"main_path": k1["launches"],
                                   "multi_agent": k1_ma}
         k2["launches_by_path"] = {"single_agent": k2["launches"],
                                   "multi_agent": k2_ma,
                                   "loop_closure": k2_lc,
-                                  "calibration": k2_cal}
+                                  "calibration": k2_cal,
+                                  "studies": k2_st}
         for k in (k1, k2):
             k["launches"] = sum(k["launches_by_path"].values())
         emit({"kernels": [k1, k2, k3, k4]})

@@ -2,15 +2,14 @@
 
 Convention: quaternions are stored as ``(x, y, z, w)`` — the TUM trajectory
 convention — in tensors of shape ``[..., 4]``.  Unit rotation quaternions
-act on points by conjugation q * p * q^-1.  Only what ``so3`` / ``se3`` and
-``eval.alignment`` need is here (the remaining helpers of the JAX package's
-module follow with the modules that use them).
+act on points by conjugation q * p * q^-1.
 """
 
 import torch
 
-__all__ = ["identity", "normalize", "mult", "conj", "inv", "apply_to_point",
-           "to_rvec", "from_matrix"]
+__all__ = ["identity", "normalize", "mult", "conj", "inv", "delta",
+           "apply_to_point", "from_rvec", "to_rvec", "to_matrix",
+           "from_matrix", "axis_angle_from_rvec"]
 
 _EPS = 1e-12
 
@@ -54,6 +53,11 @@ def inv(q):
     return conj(q) / torch.clamp(n2, min=_EPS)
 
 
+def delta(q1, q2):
+    """Relative rotation taking q1 to q2: q2 * q1^-1."""
+    return mult(q2, inv(q1))
+
+
 def _cross(a, b):
     """a x b over the last axis, term by term as ``jnp.cross`` writes it."""
     a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
@@ -71,6 +75,18 @@ def apply_to_point(q, p):
     return p + w * t + _cross(v, t)
 
 
+def from_rvec(rvec):
+    """Unit quaternion from rotation vector (axis * angle)."""
+    angle = torch.linalg.vector_norm(rvec, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    # sinc-safe: sin(half)/angle -> 0.5 as angle -> 0; the clamp keeps the
+    # untaken side finite, so its gradient is too
+    k = torch.where(angle > _EPS,
+                    torch.sin(half) / torch.clamp(angle, min=_EPS),
+                    torch.full_like(angle, 0.5))
+    return torch.cat([rvec * k, torch.cos(half)], dim=-1)
+
+
 def to_rvec(q):
     """Rotation vector from unit quaternion; minimal rotation (angle in
     [0, pi]) by flipping sign when w < 0."""
@@ -82,6 +98,30 @@ def to_rvec(q):
     k = torch.where(s > _EPS, angle / torch.clamp(s, min=_EPS),
                     torch.full_like(s, 2.0))
     return q[..., :3] * k
+
+
+def axis_angle_from_rvec(rvec):
+    """(unit axis, angle) of a rotation vector; the zero rotation's axis is
+    (0, 0, 1), so the axis is always unit."""
+    angle = torch.linalg.vector_norm(rvec, dim=-1, keepdim=True)
+    z = torch.zeros(3, dtype=rvec.dtype, device=rvec.device)
+    z[2] = 1.0
+    axis = torch.where(angle > _EPS, rvec / torch.clamp(angle, min=_EPS), z)
+    return axis, angle[..., 0]
+
+
+def to_matrix(q):
+    """3x3 rotation matrix from unit quaternion, shape [..., 3, 3]."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    r = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return r.reshape(r.shape[:-1] + (3, 3))
 
 
 def from_matrix(R):

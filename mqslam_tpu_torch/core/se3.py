@@ -1,16 +1,22 @@
 """SE(3) rigid transforms as 4x4 homogeneous matrices, batched.
 
 The extrinsic matrix ``P`` maps world points to camera coordinates:
-``x_cam = P @ [x_world, 1]``.
+``x_cam = P @ [x_world, 1]``.  A TUM pose row stores the camera centre and
+the camera-to-world quaternion, i.e. the *inverse* of P.
 """
 
 import torch
 
-from mqslam_tpu_torch.core import so3 as _so3
+from mqslam_tpu_torch.core import quat as _quat, so3 as _so3
 from mqslam_tpu_torch.core.smallmat import matmul_small, matvec_small
 
-__all__ = ["from_R_t", "from_rvec_tvec", "to_rvec_tvec", "inv", "compose",
-           "apply"]
+__all__ = ["identity", "from_R_t", "from_rvec_tvec", "to_rvec_tvec", "inv",
+           "compose", "delta", "apply", "from_pose_tum", "to_pose_tum"]
+
+
+def identity(dtype=torch.float32, device=None):
+    """The 4x4 identity, made on ``device``."""
+    return torch.eye(4, dtype=dtype, device=device)
 
 
 def from_R_t(R, t):
@@ -47,7 +53,26 @@ def compose(P2, P1):
     return matmul_small(P2, P1)
 
 
+def delta(P1, P2):
+    """Relative transform taking the frame of P1 to that of P2:
+    P2 @ P1^-1 (the odometry factor's measurement)."""
+    return matmul_small(P2, inv(P1))
+
+
 def apply(P, pts):
     """Apply P to 3D point(s) [..., 3]; P's batch dims must broadcast
     against the points' (insert a point axis: ``P[..., None, :, :]``)."""
     return matvec_small(P[..., :3, :3], pts) + P[..., :3, 3]
+
+
+def from_pose_tum(q, center):
+    """Extrinsic P from a TUM pose (quat xyzw [..., 4], camera centre
+    [..., 3]): TUM stores camera-to-world, so R = R(q)^T, t = -R c."""
+    R = _quat.to_matrix(_quat.normalize(q)).transpose(-1, -2)
+    return from_R_t(R, -matvec_small(R, center))
+
+
+def to_pose_tum(P):
+    """(quat xyzw, camera centre) of the TUM pose for extrinsic P."""
+    Pi = inv(P)
+    return _quat.from_matrix(Pi[..., :3, :3]), Pi[..., :3, 3]

@@ -5,7 +5,8 @@ import torch
 from mqslam_tpu_torch.core import quat as _quat
 from mqslam_tpu_torch.core.smallmat import matmul_small
 
-__all__ = ["hat", "exp", "log"]
+__all__ = ["hat", "exp", "log", "rvec_from_matrix", "matrix_from_rvec",
+           "delta_rvec"]
 
 _EPS = 1e-12
 
@@ -39,3 +40,13 @@ def log(R):
     0 and pi."""
     return _quat.to_rvec(_quat.from_matrix(R))
 
+
+# Aliases with the domain-specific names used around the codebase.
+matrix_from_rvec = exp
+rvec_from_matrix = log
+
+
+def delta_rvec(r1, r2):
+    """Rotation vector of the relative rotation taking r1 to r2:
+    exp(out) = exp(r2) exp(r1)^-1."""
+    return _quat.to_rvec(_quat.delta(_quat.from_rvec(r1), _quat.from_rvec(r2)))

@@ -22,7 +22,7 @@ import torch
 from mqslam_tpu_torch.ops import linalg
 
 __all__ = ["linear_eigen", "linear_ls", "iterative_ls", "optimal",
-           "fundamental_from_P"]
+           "polynomial", "METHODS", "fundamental_from_P"]
 
 
 def _prep(P):
@@ -210,3 +210,14 @@ def optimal(u1, P1, u2, P2):
     F = fundamental_from_P(P1, P2)
     u1c, u2c = _optimal_correct(u1, u2, F)
     return linear_eigen(u1c, P1, u2c, P2)
+
+
+# Reference-compatible name: the reference calls this method "polynomial".
+polynomial = optimal
+
+METHODS = {
+    "linear_eigen": linear_eigen,
+    "linear_ls": linear_ls,
+    "iterative_ls": iterative_ls,
+    "polynomial": optimal,
+}

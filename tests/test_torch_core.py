@@ -180,3 +180,88 @@ def test_camera_K_and_calibration_round_trip(rng):
         one.as_array().numpy(),
         np.asarray(jcam.cal_from_K_dist(jnp.asarray(K[0])).as_array()))
     assert (one.as_array()[5:] == 0).all()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def rvecs(rng, n=24):
+    """Rotation vectors of every size, two exact zeros among them."""
+    r = rng.randn(n, 3) * np.repeat([0.0, 1e-7, 1e-3, 0.5, 2.0, 3.0],
+                                    n // 6)[:, None]
+    return r.astype(np.float32)
+
+
+def test_quat_helpers(rng):
+    """delta, from_rvec, axis_angle_from_rvec, to_matrix: 1e-6, zero
+    rotations included (axis (0, 0, 1), angle 0, the identity)."""
+    r1, r2 = rvecs(rng), rvecs(rng)[::-1].copy()
+    jq1, jq2 = jquat.from_rvec(jnp.asarray(r1)), jquat.from_rvec(
+        jnp.asarray(r2))
+    tq1, tq2 = tquat.from_rvec(torch.tensor(r1)), tquat.from_rvec(
+        torch.tensor(r2))
+    close(tq1, jq1, atol=1e-6)
+    close(tq2, jq2, atol=1e-6)
+    np.testing.assert_array_equal(tq1[:4].numpy(), [[0, 0, 0, 1]] * 4)
+    close(tquat.delta(tq1, tq2), jquat.delta(jq1, jq2), atol=1e-6)
+    close(tquat.to_matrix(tq1), jquat.to_matrix(jq1), atol=1e-6)
+    ta, tang = tquat.axis_angle_from_rvec(torch.tensor(r1))
+    ja, jang = jquat.axis_angle_from_rvec(jnp.asarray(r1))
+    close(ta, ja, atol=1e-6)
+    close(tang, jang, atol=1e-6)
+    np.testing.assert_array_equal(ta[:4].numpy(), [[0, 0, 1]] * 4)
+    np.testing.assert_array_equal(tang[:4].numpy(), 0)
+
+
+def test_from_rvec_gradient_finite_at_zero():
+    """The untaken side of the zero-angle branch divides by a clamped
+    angle, so the gradient at the zero rotation is finite (and 0.5 I in
+    the vector part, as sin(a/2)/a -> 1/2)."""
+    r = torch.zeros(3, requires_grad=True)
+    q = tquat.from_rvec(r)
+    (g,) = torch.autograd.grad(q[:3].sum(), r)
+    np.testing.assert_array_equal(g.numpy(), [0.5, 0.5, 0.5])
+    r = torch.zeros(3, requires_grad=True)
+    axis, angle = tquat.axis_angle_from_rvec(r)
+    (g,) = torch.autograd.grad(axis.sum() + angle, r)
+    assert torch.isfinite(g).all()
+
+
+def test_so3_delta_rvec(rng):
+    r1, r2 = rvecs(rng), rvecs(rng)[::-1].copy()
+    close(tso3.delta_rvec(torch.tensor(r1), torch.tensor(r2)),
+          jso3.delta_rvec(jnp.asarray(r1), jnp.asarray(r2)), atol=1e-6)
+    np.testing.assert_array_equal(
+        tso3.delta_rvec(torch.tensor(r1), torch.tensor(r1))[:4].numpy(), 0)
+    assert tso3.matrix_from_rvec is tso3.exp
+    assert tso3.rvec_from_matrix is tso3.log
+
+
+def test_se3_helpers(rng):
+    """identity, delta, from_pose_tum, to_pose_tum: 1e-6 (TUM centres
+    ~1, so 1e-6 absolute is float32's own spacing there)."""
+    np.testing.assert_array_equal(tse3.identity().numpy(),
+                                  np.asarray(jse3.identity()))
+    assert tse3.identity(torch.float64, "cpu").dtype == torch.float64
+    r = rvecs(rng, 12)
+    t = (rng.randn(12, 3) * 0.5).astype(np.float32)
+    jP = jse3.from_rvec_tvec(jnp.asarray(r), jnp.asarray(t))
+    tP = tse3.from_rvec_tvec(torch.tensor(r), torch.tensor(t))
+    close(tse3.delta(tP, tP.flip(0)), jse3.delta(jP, jP[::-1]), atol=1e-6)
+    jq, jc = jse3.to_pose_tum(jP)
+    tq, tc_ = tse3.to_pose_tum(tP)
+    close(tq, jq, atol=1e-6)
+    close(tc_, jc, atol=1e-6)
+    q = rng.randn(12, 4).astype(np.float32)        # not unit: normalized
+    c = rng.randn(12, 3).astype(np.float32)
+    close(tse3.from_pose_tum(torch.tensor(q), torch.tensor(c)),
+          jse3.from_pose_tum(jnp.asarray(q), jnp.asarray(c)), atol=1e-6)
+    # zero rotation: the identity quaternion and the centre -t
+    tq0, tc0 = tse3.to_pose_tum(tP[:2])
+    np.testing.assert_array_equal(tq0.numpy(), [[0, 0, 0, 1]] * 2)
+    np.testing.assert_array_equal(tc0.numpy(), -t[:2])

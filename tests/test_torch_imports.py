@@ -52,7 +52,10 @@ def test_slice_modules_present():
               "calib", "calib.zhang", "calib.epipolar", "calib.relative",
               "calib.undistort", "calib.realtime", "viz", "viz.colors",
               "viz.draw", "viz.ply", "viz.painter", "viz.html_viewer",
-              "cli.calibrate"):
+              "cli.calibrate", "datasets", "datasets.icl_nuim",
+              "datasets.svo", "studies", "studies.triangulation_comparison",
+              "studies.rolling_shutter", "utils", "utils.profiling",
+              "native"):
         assert "mqslam_tpu_torch." + m in mods, m
     from mqslam_tpu_torch.ops import features
     assert callable(features._shift)
@@ -61,6 +64,46 @@ def test_slice_modules_present():
         assert os.path.exists(os.path.join(PKG, "csrc", f))
     assert csrc.sources() == ["extract", "lk_iterate", "lk_level",
                               "lk_strip"]
+    assert os.path.exists(os.path.join(PKG, "native", "imageio.cpp"))
+
+
+# The JAX package's Pallas kernels: each maps to the port's wrapper module
+# and its hand-written CUDA source.
+PALLAS = {"ops.lk_tile_pallas": ("ops.lk_tile", "lk_level.cu"),
+          "ops.lk_fused_pallas": ("ops.lk_fused", "lk_strip.cu"),
+          "ops.extract_pallas": ("ops.extract", "extract.cu"),
+          "ops.lk_pallas": ("ops.lk_iterate", "lk_iterate.cu")}
+
+
+def test_port_covers_every_module_of_the_jax_package():
+    """Every module of ``mqslam_tpu/`` has a port module of the same dotted
+    name, the four Pallas kernel modules excepted (they map to their
+    wrappers and ``csrc/`` sources); native sources are copied too."""
+    jax_pkg = os.path.join(ROOT, "mqslam_tpu")
+    ported = {m[len("mqslam_tpu_torch."):] for m in port_modules()[1:]}
+    names, sources = [], []
+    for d, _, fs in os.walk(jax_pkg):     # the files: no JAX module imported
+        rel = os.path.relpath(d, jax_pkg)
+        pkg = [] if rel == "." else rel.split(os.sep)
+        for f in fs:
+            if f == "__init__.py" and pkg:
+                names.append(".".join(pkg))
+            elif f.endswith(".py") and f != "__init__.py":
+                names.append(".".join(pkg + [f[:-3]]))
+            elif f.endswith((".cpp", ".cu", ".cuh", ".h")):
+                sources.append(os.path.join(rel, f))
+    missing = []
+    for name in names:
+        if name in PALLAS:
+            wrapper, cu = PALLAS[name]
+            assert wrapper in ported, wrapper
+            assert os.path.exists(os.path.join(PKG, "csrc", cu)), cu
+        elif name not in ported:
+            missing.append(name)
+    assert not missing, missing
+    for rel in sources:
+        assert os.path.exists(os.path.join(PKG, rel)), rel
+    assert len(names) > 80 and "native" in names and sources
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
@@ -184,6 +227,26 @@ def test_loop_closure_entry_points_need_a_cuda_device_by_default(
                   convert.pose_graph_from_numpy):
         with pytest.raises(RuntimeError, match="CUDA"):
             carry({})
+
+
+def test_last_slice_entry_points_need_a_cuda_device_by_default(no_cuda):
+    """The datasets' plane initialisation and the two studies take the CUDA
+    device unless asked for the CPU, and never fall back."""
+    from mqslam_tpu_torch.datasets import svo
+    from mqslam_tpu_torch.studies import rolling_shutter
+    from mqslam_tpu_torch.studies import triangulation_comparison as tc
+    cal = convert.cal_from_numpy([300.0, 300.0, 0, 160, 120, 0, 0, 0, 0],
+                                 device="cpu")
+    img = np.zeros((48, 64), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        svo.initialize_from_plane(img, np.eye(4), cal)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rolling_shutter.analyze_sequence([img, img])
+    for study in (tc.test_1and2, tc.test_3):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            study(filename=None, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tc.main(["--out-dir", "unused"])
 
 
 def _level_args(device="cpu"):
