@@ -1,0 +1,1 @@
+"""Reference of the benchmark (see ``benchmark/harness.py``)."""
