@@ -30,6 +30,7 @@ from mqslam_tpu_torch.frontend import tracker as trk
 from mqslam_tpu_torch.io import ba_info as ba_io, pcd as pcd_mod, tum
 from mqslam_tpu_torch.io.nputil import matrix_to_quat_np
 from mqslam_tpu_torch.ops import lk, orb
+from mqslam_tpu_torch.utils import profiling
 
 __all__ = ["FrontendResult", "run_frontend"]
 
@@ -145,7 +146,7 @@ def run_frontend(images, cal: cam_mod.Cal3DS2, config: trk.TrackerConfig,
     cal = cal.to(device)
     _, refill_kf, step_pyr = trk.make_step(cal, config, device)
     pad = lk.lk_pad(config.lk_win)
-    clock = trk.StageClock(stage_ms, device)
+    clock = profiling.Stages(stage_ms, device)
 
     def to_device(img):
         return torch.as_tensor(np.asarray(img, dtype=np.float32)).to(device)

@@ -20,7 +20,6 @@ package got from ``vmap`` is written out.  Sequences are Python loops over
 frames.  RANSAC draws are explicit (``scores`` / ``generator``).
 """
 
-import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -30,9 +29,10 @@ from mqslam_tpu_torch import resolve_device
 from mqslam_tpu_torch.core import camera as cam_mod, se3, so3
 from mqslam_tpu_torch.ops import features, homography, lk, pnp
 from mqslam_tpu_torch.ops import triangulation as tri
+from mqslam_tpu_torch.utils import profiling
 
 __all__ = ["TrackerConfig", "TrackerState", "TrackInterm", "StepOutput",
-           "StageClock", "make_step", "bootstrap", "make_scan_runner",
+           "make_step", "bootstrap", "make_scan_runner",
            "make_multi_agent_runner"]
 
 
@@ -433,8 +433,8 @@ def make_step(cal: cam_mod.Cal3DS2, config: TrackerConfig, device=None):
                  generator=None, clock=None):
         """Per-frame step of ONE agent over pyramids pre-padded by
         ``lk.lk_pad(win)`` (build via lk.build_pyramid(img, levels, pad)).
-        ``clock`` (a StageClock) is marked after the flow and after the
-        rest."""
+        ``clock`` (a ``profiling.Stages``) is marked after the flow and
+        after the rest."""
         new_uv, st_of, err_of = lk.lk_track_pyr(
             prev_pyr, new_pyr, state.cur_uv, state.active,
             win=config.lk_win, prepad=True)
@@ -496,25 +496,6 @@ def make_scan_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
     return run
 
 
-class StageClock:
-    """Host-clock time per stage, each closed by a device synchronize; only
-    used when a caller asks for stage times (it serializes the stream)."""
-
-    def __init__(self, sink, device):
-        self.sink, self.cuda = sink, device.type == "cuda"
-        self.t = None
-
-    def mark(self, name=None):
-        if self.sink is None:
-            return
-        if self.cuda:
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        if name is not None:
-            self.sink[name] = self.sink.get(name, 0.0) + (now - self.t) * 1e3
-        self.t = now
-
-
 def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
                             collect: bool = False, device=None):
     """Whole-sequence runner for A agents tracked concurrently — the
@@ -528,8 +509,16 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
 
     The keyframe phase and the refill are skipped on frame-groups where no
     agent keyframed, at one host read-back of ``any(is_kf)`` each.
-    ``stage_ms`` (a dict) receives accumulated milliseconds per stage;
-    asking for it synchronizes after every stage.
+    ``stage_ms`` (a dict) receives accumulated milliseconds per stage
+    (``pyramid``, ``lk``, ``track_phase``, ``keyframe_refill``); asking for
+    it synchronizes after every stage.
+
+    While tracing is on (``utils.profiling``), each call records the spans
+    ``fleet.group`` (the call), ``fleet.upload`` (frames and states to the
+    device), ``fleet.pyramid`` (each atlas build: the previous frame's and
+    the new one's), ``fleet.lk``, ``fleet.track_phase``, ``fleet.kf_gate``
+    (the ``any(is_kf)`` read-back) and, on groups where an agent keyframed,
+    ``fleet.keyframe`` (the keyframe phase, finalize and the refill).
 
     ``collect=True`` appends the per-frame track-level outputs (cur_uv,
     track_alive, track_triangulated, new_landmarks, pnp_inlier, objp_idx)
@@ -550,41 +539,51 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
     @torch.no_grad()
     def run(states: TrackerState, imgs, ransac_scores=None, generator=None,
             stage_ms=None):
-        imgs = torch.as_tensor(imgs, dtype=torch.float32).to(device)
-        states = TrackerState(*(x.to(device) for x in states))
+        with profiling.span("fleet.group", device):
+            return _run(states, imgs, ransac_scores, generator, stage_ms)
+
+    def _run(states, imgs, ransac_scores, generator, stage_ms):
+        with profiling.span("fleet.upload", device):
+            imgs = torch.as_tensor(imgs, dtype=torch.float32).to(device)
+            states = TrackerState(*(x.to(device) for x in states))
         A = imgs.shape[0]
-        clock = StageClock(stage_ms, device)
-        prev_atlas = atlas_pyramid(imgs[:, 0])
+        clock = profiling.Stages(stage_ms, device)
+        with profiling.span("fleet.pyramid", device):
+            prev_atlas = atlas_pyramid(imgs[:, 0])
         outs = []
         for idx in range(imgs.shape[1] - 1):
             clock.mark()
             new = imgs[:, idx + 1]
-            new_atlas = atlas_pyramid(new)
-            clock.mark("pyramid")
-            new_uv, st_of, err_of = lk.lk_track_pyr(
-                prev_atlas, new_atlas, states.cur_uv.reshape(A * K, 2),
-                states.active.reshape(A * K), win=config.lk_win,
-                prepad=True, atlas_tiles=A, atlas_contiguous=True)
-            clock.mark("lk")
-            sc = None if ransac_scores is None else \
-                torch.as_tensor(ransac_scores[idx]).to(device)
-            t = pf.track_phase(states, new_uv.reshape(A, K, 2),
-                               st_of.reshape(A, K), err_of.reshape(A, K),
-                               sc, generator)
-            clock.mark("track_phase")
+            with clock.span("fleet.pyramid", "pyramid"):
+                new_atlas = atlas_pyramid(new)
+            with clock.span("fleet.lk", "lk"):
+                new_uv, st_of, err_of = lk.lk_track_pyr(
+                    prev_atlas, new_atlas, states.cur_uv.reshape(A * K, 2),
+                    states.active.reshape(A * K), win=config.lk_win,
+                    prepad=True, atlas_tiles=A, atlas_contiguous=True)
+            with clock.span("fleet.track_phase", "track_phase"):
+                sc = None if ransac_scores is None else \
+                    torch.as_tensor(ransac_scores[idx]).to(device)
+                t = pf.track_phase(states, new_uv.reshape(A, K, 2),
+                                   st_of.reshape(A, K),
+                                   err_of.reshape(A, K), sc, generator)
             # per-agent padded level-0 tiles for the keyframe color sampling
             tiles0 = new_atlas[0].reshape(A, -1, new_atlas[0].shape[1])
-            any_kf = bool(t.is_kf.any())
-            kf_out = pf.kf_phase(states, t, tiles0) if any_kf \
-                else pf.no_kf_phase(states, t)
-            states, out = pf.finalize(states, t, kf_out)
-            if any_kf:
-                # full-image corner detection per agent is the most
-                # expensive op of the body: only on frame-groups where SOME
-                # agent keyframed
-                states = _select_states(out.accepted == 2, states,
-                                        _refill(states, new, config))
-            clock.mark("keyframe_refill")
+            with profiling.span("fleet.kf_gate", device, drained=True):
+                any_kf = bool(t.is_kf.any())
+            # the keyframe span covers kf_phase, finalize and the refill;
+            # the stage runs from the track phase's end on every group
+            with clock.span("fleet.keyframe" if any_kf else None,
+                            "keyframe_refill"):
+                kf_out = pf.kf_phase(states, t, tiles0) if any_kf \
+                    else pf.no_kf_phase(states, t)
+                states, out = pf.finalize(states, t, kf_out)
+                if any_kf:
+                    # full-image corner detection per agent is the most
+                    # expensive op of the body: only on frame-groups where
+                    # SOME agent keyframed
+                    states = _select_states(out.accepted == 2, states,
+                                            _refill(states, new, config))
             res = (out.accepted, out.rvec, out.tvec)
             if collect:
                 res = res + (out.cur_uv, out.track_alive,

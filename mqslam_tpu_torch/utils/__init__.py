@@ -1,3 +1,3 @@
-"""Small shared utilities: timers, traces."""
+"""Small shared utilities: timers, spans, traces."""
 
-from mqslam_tpu_torch.utils.profiling import Timer, timers  # noqa: F401
+from mqslam_tpu_torch.utils.profiling import Timer  # noqa: F401

@@ -1,5 +1,5 @@
 """mqslam_tpu_torch.utils.profiling and studies.rolling_shutter on the CPU:
-the timers' semantics, a trace written on the CPU activity, and the
+the Timer's semantics, a trace written on the CPU activity, and the
 rolling-shutter study against the JAX package's on the same frames
 (deviations within 2e-3 px, classes equal)."""
 
@@ -14,7 +14,7 @@ from mqslam_tpu.studies import rolling_shutter as jrs
 from mqslam_tpu_torch.core import so3
 from mqslam_tpu_torch.frontend import synthetic
 from mqslam_tpu_torch.studies import rolling_shutter as trs
-from mqslam_tpu_torch.utils import Timer, profiling, timers
+from mqslam_tpu_torch.utils import Timer, profiling
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -59,16 +59,6 @@ def test_timer_stop_returns_result_and_syncs_cuda_only(monkeypatch):
     t.start()
     t.stop({"x": [(FakeCuda(), torch.ones(1))], "y": FakeCuda()})
     assert synced == [cuda] and t.count == 2
-
-
-def test_registry():
-    timers["unit-test-timer"].start()
-    timers["unit-test-timer"].stop()
-    assert timers["unit-test-timer"].count >= 1
-    assert timers["unit-test-timer"].name == "unit-test-timer"
-    lines = []
-    timers.report(lines.append)
-    assert any("unit-test-timer" in line for line in lines)
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path, monkeypatch):
