@@ -32,7 +32,10 @@ Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
   3. drives the multi-agent path — ``make_multi_agent_runner`` at full
      width: 16 divergent agents, 640x480, 33 frames, ``TrackerConfig()``
      defaults — with the launch counts set to 0 just before and read just
-     after,
+     after; then its first 5 agents streamed one frame-group a call
+     (``fleet_graph``), the track phase's CUDA graph against the same
+     runner with the phase eager: bit-equal groups, no returned tensor
+     overwritten by a later replay, one ``fleet.track_graph`` span a group,
   4. drives the single-agent path — ``run_frontend`` at full width: one
      agent, 1280x720, 49 frames, the same defaults, BA data collected — the
      same way, then the command line over PNG files in a temporary
@@ -1012,6 +1015,98 @@ def phase_main_path(cal, config, states, imgs, seqs, device):
         aggregate_frames_per_s=A * n / seconds, seconds=seconds,
         stage_ms_per_frame_group={k: v / n for k, v in stage_ms.items()},
         launches={"lk_level": launches}), launches
+
+
+FLEET_GRAPH_AGENTS = 5    # the benchmark's fleet (benchmark/configs/)
+
+
+def phase_fleet_graph(cal, config, states, imgs, device):
+    """The fleet runner's track phase as a CUDA graph (``utils.cuda_graph``)
+    against the same runner with the phase run eagerly (``Graphed`` stood in
+    by the function itself), each streamed one frame-group a call as the
+    benchmark's fleet is: the first 5 agents of the main path, 32 groups,
+    one generator carried across calls.  Every group's outputs and carried
+    states bit-equal; the outputs and states of each group, cloned before
+    the next call, unchanged after the next replay; ``fleet.track_graph``
+    recorded once a group; ``pnp_ransac``'s own draw bit-equal, on the
+    card, to the runner's draw made outside and handed in."""
+    from mqslam_tpu_torch.frontend import tracker as trk
+    from mqslam_tpu_torch.utils import cuda_graph, profiling
+
+    A, n = FLEET_GRAPH_AGENTS, imgs.shape[1] - 1
+    st0 = trk.TrackerState(*(x[:A].clone() for x in states))
+    frames = torch.as_tensor(imgs[:A]).to(device)
+    clone = lambda xs: [x.clone() for x in xs]
+    # bit for bit, NaN where NaN
+    same = lambda xs, ys: all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and bool(((x == y) | ((x != x) & (y != y))).all())
+        for x, y in zip(xs, ys))
+
+    def stream(run, check_alias=False):
+        gen = torch.Generator(device=device).manual_seed(3)
+        st, groups, prev, seconds = st0, [], None, []
+        for f in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, outs = run(st, frames[:, f:f + 2], generator=gen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if prev is not None:
+                require(same(*prev), f"fleet_graph: group {f - 1}'s "
+                        "outputs or states changed in the next call")
+            groups.append(clone(st) + clone(outs))
+            if check_alias:
+                prev = (list(st) + list(outs), groups[-1])
+        return groups, seconds
+
+    graphed = trk.make_multi_agent_runner(cal, config, collect=True,
+                                          device=device)
+    real = cuda_graph.Graphed
+    cuda_graph.Graphed = lambda fn, device: fn
+    try:
+        eager = trk.make_multi_agent_runner(cal, config, collect=True,
+                                            device=device)
+    finally:
+        cuda_graph.Graphed = real
+    ref, eager_s = stream(eager)
+    profiling.reset()
+    profiling.enable(device)
+    got, graph_s = stream(graphed, check_alias=True)
+    profiling.disable()
+    counts = {k: v["count"] for k, v in profiling.span_stats("fleet.").items()}
+    profiling.reset()
+    for f, (a, b) in enumerate(zip(ref, got)):
+        require(same(a, b),
+                f"fleet_graph: group {f} differs from the eager phase")
+    acc = torch.stack([g[len(trk.TrackerState._fields)] for g in got])
+    kf_groups = int((acc == 2).reshape(n, -1).any(dim=1).sum())
+    require(kf_groups > 0 and bool((acc > 0).all()),
+            f"fleet_graph: {kf_groups} keyframe groups, accepted {acc}")
+    require(counts.get("fleet.track_graph") == n
+            and counts.get("fleet.track_phase") == n,
+            f"fleet_graph: span counts {counts}")
+    # the draw: pnp_ransac's own against the same call made outside
+    _, _, step_pyr = trk.make_step(cal, config, device)
+    pf = step_pyr.post_flow
+    K, H = config.max_tracks, config.ransac_hypotheses
+    new_uv = st0.cur_uv + 0.25
+    flow = (new_uv, torch.ones_like(st0.active),
+            torch.zeros(A, K, device=device))
+    inside = pf.track_phase(st0, *flow, None,
+                            torch.Generator(device=device).manual_seed(9))
+    drawn = torch.rand((A, H, K), dtype=torch.float32, device=device,
+                       generator=torch.Generator(device=device).manual_seed(9))
+    outside = pf.track_phase(st0, *flow, drawn)
+    require(same(inside, outside),
+            "fleet_graph: the draw made outside differs from pnp_ransac's")
+    med = lambda s: statistics.median(s[1:]) * 1e3
+    return dict(agents=A, frame_groups=n, keyframe_groups=kf_groups,
+                max_tracks=K, ransac_hypotheses=H, bit_equal=True,
+                outputs_kept=True, span_counts=counts,
+                group_ms_median=dict(eager=med(eager_s), graph=med(graph_s)),
+                first_group_ms=dict(eager=eager_s[0] * 1e3,
+                                    graph=graph_s[0] * 1e3))
 
 
 def phase_single_agent(single, config, device, tile_launches_before):
@@ -3359,6 +3454,9 @@ def main():
         log("phase main_path (16 agents)")
         main_path, k1["launches"] = phase_main_path(cal, config, states,
                                                     imgs, seqs, device)
+        log("phase fleet_graph (5 agents, graphed track phase vs eager)")
+        emit({"fleet_graph": phase_fleet_graph(cal, config, states, imgs,
+                                               device)})
         log("phase single_agent")
         single_agent, res, k2["launches"] = phase_single_agent(
             single, config, device, k1["launches"])

@@ -16,11 +16,10 @@ _EPS = 1e-12
 
 def identity(dtype=torch.float32, device=None):
     """The identity rotation quaternion (0, 0, 0, 1), made on ``device``
-    (no host-to-device copy: on a CUDA device that copy waits for the
-    stream)."""
-    q = torch.zeros(4, dtype=dtype, device=device)
-    q[3] = 1.0
-    return q
+    (no host-to-device copy, such as storing a Python number into it: on a
+    CUDA device that copy waits for the stream, and no CUDA graph can
+    capture it)."""
+    return torch.eye(4, dtype=dtype, device=device)[3]
 
 
 def normalize(q):

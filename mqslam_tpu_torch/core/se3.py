@@ -25,8 +25,9 @@ def from_R_t(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                          device=top.device).expand(batch + (1, 4))
+    # (0, 0, 0, 1) made on the device: a host list would be a copy that
+    # waits for the stream, and no CUDA graph can capture it
+    bottom = identity(top.dtype, top.device)[3:].expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

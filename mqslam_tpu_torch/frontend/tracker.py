@@ -29,7 +29,7 @@ from mqslam_tpu_torch import resolve_device
 from mqslam_tpu_torch.core import camera as cam_mod, se3, so3
 from mqslam_tpu_torch.ops import features, homography, lk, pnp
 from mqslam_tpu_torch.ops import triangulation as tri
-from mqslam_tpu_torch.utils import profiling
+from mqslam_tpu_torch.utils import cuda_graph, profiling
 
 __all__ = ["TrackerConfig", "TrackerState", "TrackInterm", "StepOutput",
            "make_step", "bootstrap", "make_scan_runner",
@@ -520,6 +520,15 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
     (the ``any(is_kf)`` read-back) and, on groups where an agent keyframed,
     ``fleet.keyframe`` (the keyframe phase, finalize and the refill).
 
+    On a CUDA device the track phase is one CUDA graph (``utils.cuda_graph``),
+    captured on the first frame-group of each shape and replayed on every
+    one after it, inside the span ``fleet.track_graph``: the phase is many
+    thousands of small kernels, which the host would otherwise launch one by
+    one.  Its RANSAC draw is made before the replay, by the call
+    ``pnp_ransac`` makes from the same generator, so the graph's outputs are
+    bit-equal to the eager phase's.  Nothing the runner returns is a buffer
+    of the graph.
+
     ``collect=True`` appends the per-frame track-level outputs (cur_uv,
     track_alive, track_triangulated, new_landmarks, pnp_inlier, objp_idx)
     from which each agent's BA data can be reconstructed on the host."""
@@ -528,6 +537,16 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
     pad = lk.lk_pad(config.lk_win)
     pf = step_pyr.post_flow
     K = config.max_tracks
+    graphed = None
+    if device.type == "cuda":
+        def track(active, triangulated, objp, objp_idx, base_uv, new_uv,
+                  st_of, err_of, scores):
+            # the fields the track phase reads; the others cannot be read
+            st = TrackerState._make([None] * len(TrackerState._fields))
+            st = st._replace(active=active, triangulated=triangulated,
+                             objp=objp, objp_idx=objp_idx, base_uv=base_uv)
+            return pf.track_phase(st, new_uv, st_of, err_of, scores)
+        graphed = cuda_graph.Graphed(track, device)
 
     def atlas_pyramid(imgs_a):
         """[A, H, W] -> per-level [A*Hp, Wp] vertical atlases (each tile
@@ -562,11 +581,22 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
                     states.active.reshape(A * K), win=config.lk_win,
                     prepad=True, atlas_tiles=A, atlas_contiguous=True)
             with clock.span("fleet.track_phase", "track_phase"):
+                flow = (new_uv.reshape(A, K, 2), st_of.reshape(A, K),
+                        err_of.reshape(A, K))
                 sc = None if ransac_scores is None else \
                     torch.as_tensor(ransac_scores[idx]).to(device)
-                t = pf.track_phase(states, new_uv.reshape(A, K, 2),
-                                   st_of.reshape(A, K),
-                                   err_of.reshape(A, K), sc, generator)
+                if graphed is None:
+                    t = pf.track_phase(states, *flow, sc, generator)
+                else:
+                    if sc is None:
+                        # pnp_ransac's own draw, outside the graph
+                        sc = torch.rand((A, config.ransac_hypotheses, K),
+                                        dtype=states.objp.dtype,
+                                        device=device, generator=generator)
+                    with profiling.span("fleet.track_graph", device):
+                        t = graphed(states.active, states.triangulated,
+                                    states.objp, states.objp_idx,
+                                    states.base_uv, *flow, sc)
             # per-agent padded level-0 tiles for the keyframe color sampling
             tiles0 = new_atlas[0].reshape(A, -1, new_atlas[0].shape[1])
             with profiling.span("fleet.kf_gate", device, drained=True):

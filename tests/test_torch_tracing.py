@@ -288,6 +288,16 @@ def test_fleet_outputs_bit_equal_with_tracing_and_spans_per_group(
     assert covered >= 0.95 * s["fleet.group"]["host_ms"]
 
 
+def test_cpu_runner_records_no_track_graph_span(fleet):
+    """The track phase's CUDA graph is a card's alone: on the CPU the
+    runner runs the phase eagerly and records no ``fleet.track_graph``."""
+    profiling.enable()
+    stream(fleet, groups=2)
+    s = profiling.span_stats("fleet.")
+    assert s["fleet.track_phase"]["count"] == 2
+    assert "fleet.track_graph" not in s
+
+
 def test_keyframe_span_only_on_keyframe_groups(fleet):
     profiling.enable()
     st = fleet["init"]

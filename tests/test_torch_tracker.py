@@ -3,17 +3,21 @@ two-agent construction of tests/test_frontend.py (320x240, 128 tracks,
 7 frames), bootstrap field by field, then both multi-agent runners frame by
 frame with the JAX RANSAC draws replayed into the port."""
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mqslam_tpu.core import camera as jcam
 from mqslam_tpu.frontend import synthetic as jsyn, tracker as jtrk
 from mqslam_tpu.ops import features as jfeat
 
 from mqslam_tpu_torch import convert
+from mqslam_tpu_torch.core import quat as tquat, se3 as tse3
 from mqslam_tpu_torch.frontend import synthetic as tsyn, tracker as ttrk
 from mqslam_tpu_torch.ops import features as tfeat, lk as tlk
 
@@ -279,3 +283,98 @@ def test_landmark_store_full(fleet, both_runs):
     for a in np.nonzero(kf)[0]:
         np.testing.assert_array_equal(final.objp[a].numpy(),
                                       full_final.objp[a, :M].numpy())
+
+
+class HostOps(TorchDispatchMode):
+    """Counts the ATen calls that make or move host data: ``lift_fresh``
+    (``torch.tensor`` and a Python number stored into a tensor),
+    ``copy_``, ``_to_copy`` onto another device, and ``_local_scalar_dense``
+    (a read back to the host).  On a card each is a copy or a wait that no
+    CUDA graph can capture."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.__name__.split(".")[0]
+        if name in ("lift_fresh", "copy_", "_local_scalar_dense") or (
+                name == "_to_copy" and "device" in kwargs):
+            self.ops[name] += 1
+        return func(*args, **kwargs)
+
+
+def _first_group(fleet, both_runs):
+    """The two agents' states and their flow over the first frame pair,
+    as the track phase takes them ([A, K, ...])."""
+    cfg = fleet["tcfg"]
+    st = both_runs["tstates"]
+    pad = tlk.lk_pad(cfg.lk_win)
+    flows = []
+    for a in range(st.active.shape[0]):
+        pyr = [tlk.build_pyramid(torch.tensor(both_runs["imgs"][a, i]),
+                                 cfg.lk_levels, pad=pad) for i in (0, 1)]
+        flows.append(tlk.lk_track_pyr(pyr[0], pyr[1], st.cur_uv[a],
+                                      st.active[a], win=cfg.lk_win,
+                                      prepad=True))
+    return st, [torch.stack(x) for x in zip(*flows)]
+
+
+def test_ransac_draw_made_outside_is_pnp_ransacs(fleet, both_runs):
+    """The fleet runner's CUDA graph takes the RANSAC draw as ``scores``,
+    made before the replay by the call ``pnp_ransac`` makes: handed in, it
+    gives the track phase of ``pnp_ransac`` drawing from a generator seeded
+    alike, bit for bit, and leaves the generator where ``pnp_ransac`` does."""
+    cfg = fleet["tcfg"]
+    _, _, step_pyr = ttrk.make_step(fleet["tcal"], cfg, device="cpu")
+    pf = step_pyr.post_flow
+    st, flow = _first_group(fleet, both_runs)
+    g_in, g_out = (torch.Generator().manual_seed(21) for _ in range(2))
+    inside = pf.track_phase(st, *flow, None, g_in)
+    drawn = torch.rand((st.active.shape[0], cfg.ransac_hypotheses,
+                        cfg.max_tracks), dtype=torch.float32,
+                       generator=g_out)
+    outside = pf.track_phase(st, *flow, drawn)
+    for name, x, y in zip(ttrk.TrackInterm._fields, inside, outside):
+        np.testing.assert_array_equal(x.numpy(), y.numpy(), name)
+    assert torch.equal(g_in.get_state(), g_out.get_state())
+    assert not bool(inside.rejected.any())
+
+
+@pytest.mark.parametrize("batch_R,batch_t", [((), ()), ((2, 5), (2, 5)),
+                                             ((), (4,)), ((3, 1), (1, 2))])
+def test_from_R_t_is_built_on_the_device(batch_R, batch_t):
+    """``se3.from_R_t`` returns [R t; 0 0 0 1] with no host data moved:
+    no ``torch.tensor``, no copy (the fleet's track phase reaches it inside
+    its CUDA graph); ``quat.identity`` likewise."""
+    g = torch.Generator().manual_seed(4)
+    R = torch.randn(batch_R + (3, 3), generator=g)
+    t = torch.randn(batch_t + (3,), generator=g)
+    with HostOps() as host:
+        P = tse3.from_R_t(R, t)
+        q = tquat.identity()
+    assert not host.ops, host.ops
+    batch = np.broadcast_shapes(batch_R, batch_t)
+    want = np.zeros(batch + (4, 4), np.float32)
+    want[..., :3, :3] = R.numpy()
+    want[..., :3, 3] = t.numpy()
+    want[..., 3, 3] = 1.0
+    np.testing.assert_array_equal(P.numpy(), want)
+    np.testing.assert_array_equal(q.numpy(), [0, 0, 0, 1])
+
+
+def test_track_phase_moves_no_host_data(fleet, both_runs):
+    """Once the Jacobi constants are cached (the graph's warm-up does
+    that), the track phase with its draw handed in makes no host tensor,
+    no copy and no read-back: nothing a CUDA graph cannot capture."""
+    cfg = fleet["tcfg"]
+    _, _, step_pyr = ttrk.make_step(fleet["tcal"], cfg, device="cpu")
+    pf = step_pyr.post_flow
+    st, flow = _first_group(fleet, both_runs)
+    drawn = torch.rand((st.active.shape[0], cfg.ransac_hypotheses,
+                        cfg.max_tracks), generator=torch.Generator())
+    pf.track_phase(st, *flow, drawn)
+    with HostOps() as host:
+        pf.track_phase(st, *flow, drawn)
+    assert not host.ops, host.ops
