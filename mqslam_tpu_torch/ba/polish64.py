@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from mqslam_tpu_torch.ba.problem import BAVariables
+from mqslam_tpu_torch.utils import profiling
 
 __all__ = ["polish64"]
 
@@ -152,7 +153,13 @@ def polish64(problem, v, max_iters: int = 10, lam0: float = 1e-10,
              verbose: bool = False):
     """Polish BAVariables ``v`` for ``problem`` with f64 dense exact-Schur
     LM. Returns (BAVariables f32 on the problem's device, history of f64
-    costs)."""
+    costs).  Span ``ba.polish64`` covers the whole: the reads to the host,
+    the iterations and the result's copy back to the device."""
+    with profiling.span("ba.polish64", problem.device):
+        return _polish64(problem, v, max_iters, lam0, verbose)
+
+
+def _polish64(problem, v, max_iters, lam0, verbose):
     F = int(problem.n_poses)
     P = int(problem.n_points)
     op = _np(problem.obs_pose)

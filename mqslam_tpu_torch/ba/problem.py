@@ -19,6 +19,7 @@ import torch
 
 from mqslam_tpu_torch import resolve_device
 from mqslam_tpu_torch.core import so3
+from mqslam_tpu_torch.utils import profiling
 
 __all__ = ["BAProblem", "BAVariables", "problem_from_ba_data",
            "problem_to", "variables_from_problem"]
@@ -111,8 +112,16 @@ def problem_from_ba_data(data, pad_multiple: int = 128,
     associations, between factors from the odometry associations, priors on
     each camera's first valid pose and on the first landmark batch.
     ``step_limit`` truncates to the first N steps.  The build is host code;
-    the result lands on ``device`` (None: the CUDA device)."""
+    the result lands on ``device`` (None: the CUDA device).  Span
+    ``ba.build`` covers both."""
     device = resolve_device(device)
+    with profiling.span("ba.build", device):
+        return problem_to(_host_problem(data, pad_multiple, step_limit),
+                          device)
+
+
+def _host_problem(data, pad_multiple, step_limit):
+    """``problem_from_ba_data``'s build, as host tensors."""
     C = data.nr_cameras
     S = data.nr_steps if step_limit is None else min(step_limit,
                                                     data.nr_steps)
@@ -213,7 +222,7 @@ def problem_from_ba_data(data, pad_multiple: int = 128,
     def valid(n_used, n):
         return torch.as_tensor(np.arange(n) < n_used)
 
-    prob = BAProblem(
+    return BAProblem(
         init=BAVariables(
             pose_r=torch.as_tensor(pose_r, dtype=torch.float32),
             pose_t=torch.as_tensor(pose_t, dtype=torch.float32),
@@ -244,7 +253,6 @@ def problem_from_ba_data(data, pad_multiple: int = 128,
         prior_point_sigma=f32(pq_sig, Rq, (), fill=1.0),
         prior_point_valid=valid(len(pq_idx), Rq),
     )
-    return problem_to(prob, device)
 
 
 def problem_to(problem: BAProblem, device, dtype=None) -> BAProblem:

@@ -59,6 +59,7 @@ from mqslam_tpu_torch.ba.problem import BAProblem, BAVariables
 from mqslam_tpu_torch.core import so3
 from mqslam_tpu_torch.core.smallmat import matmul_small, matvec_small
 from mqslam_tpu_torch.ops import linalg
+from mqslam_tpu_torch.utils import profiling
 
 __all__ = ["dense_method_ok", "Linearization", "linearize", "solve_delta",
            "solve_delta_dense", "pack_jacobians", "pack_for_layout",
@@ -765,43 +766,60 @@ def lm_solve(problem: BAProblem, v0: BAVariables = None, max_iters: int = 60,
     valleys that only near-exact Newton steps walk to the right basin, so
     the CG defaults are a high iteration budget and a tight tolerance.
     Returns (v, history of costs, one per outer iteration after the
-    initial one)."""
+    initial one).
+
+    Spans (``utils/profiling.span``, none of which synchronizes):
+    ``ba.lm`` the whole solve, ``ba.linearize`` each outer iteration's
+    linearization (and packing), ``ba.step`` each attempt's solve and
+    update (its count is the attempts'), ``ba.cost`` each cost and its
+    read to the host, the initial one included."""
     method = _resolve_method(problem, method)
     layout = _resolve_layout(problem, method, layout)
+    dev = problem.device
     v = v0 or problem.init
-    lam = lam0
-    cost = float(compute_cost(problem, v))
-    history = [cost]
-    for it in range(max_iters):
-        lin = linearize(problem, v)
-        pJ = (pack_for_layout(lin, layout)
-              if layout is not None and method == "cg" else None)
-        improved = False
-        for _ in range(max_retries):  # lambda escalation attempts
-            if method == "dense":
-                dc, dp = solve_delta_dense(problem, lin, lam)
-            else:
-                dc, dp, _ = solve_delta(problem, lin, lam, cg_iters=cg_iters,
-                                        cg_tol=cg_tol, layout=layout,
-                                        packedJ=pJ)
-            v_try = apply_delta(v, dc, dp)
-            new_cost = float(compute_cost(problem, v_try))
-            if new_cost < cost:
-                v = v_try
-                cost = new_cost
-                lam = max(lam / lam_down, 1e-9)
-                improved = True
+    with profiling.span("ba.lm", dev):
+        lam = lam0
+        cost = _cost_read(problem, v, dev)
+        history = [cost]
+        for it in range(max_iters):
+            with profiling.span("ba.linearize", dev):
+                lin = linearize(problem, v)
+                pJ = (pack_for_layout(lin, layout)
+                      if layout is not None and method == "cg" else None)
+            improved = False
+            for _ in range(max_retries):  # lambda escalation attempts
+                with profiling.span("ba.step", dev):
+                    if method == "dense":
+                        dc, dp = solve_delta_dense(problem, lin, lam)
+                    else:
+                        dc, dp, _ = solve_delta(
+                            problem, lin, lam, cg_iters=cg_iters,
+                            cg_tol=cg_tol, layout=layout, packedJ=pJ)
+                    v_try = apply_delta(v, dc, dp)
+                new_cost = _cost_read(problem, v_try, dev)
+                if new_cost < cost:
+                    v = v_try
+                    cost = new_cost
+                    lam = max(lam / lam_down, 1e-9)
+                    improved = True
+                    break
+                lam = min(lam * lam_up, 1e6)
+            history.append(cost)
+            if verbose:
+                print(f"LM iter {it}: cost={cost:.6e} lam={lam:.2e}")
+            if not improved:
                 break
-            lam = min(lam * lam_up, 1e6)
-        history.append(cost)
-        if verbose:
-            print(f"LM iter {it}: cost={cost:.6e} lam={lam:.2e}")
-        if not improved:
-            break
-        if rtol > 0 and len(history) > 2 and (
-                history[-2] - history[-1]) < rtol * max(history[-2], 1e-30):
-            break
-    return v, history
+            if rtol > 0 and len(history) > 2 and (history[-2] - history[-1]
+                                                  < rtol * max(history[-2],
+                                                               1e-30)):
+                break
+        return v, history
+
+
+def _cost_read(problem, v, dev):
+    """``compute_cost`` read to the host, as span ``ba.cost``."""
+    with profiling.span("ba.cost", dev, drained=True):
+        return float(compute_cost(problem, v))
 
 
 def lm_solve_device(problem: BAProblem, v0: BAVariables = None,

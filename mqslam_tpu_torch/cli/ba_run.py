@@ -14,6 +14,8 @@ package's CLI does).  ``runFromGenerated`` 1 solves the synthetic cube
 scenario instead of the dump.  Writes traj_out.camC-<baseName>-BA.txt and
 map_out-<baseName>-BA.pcd into baseDir.  ``--device`` (anywhere in the
 arguments) picks the torch device: the CUDA device by default.
+``refine(data)`` is the solve alone, between the load and the writes, for
+a caller that holds a ``BAData`` in memory.
 """
 
 import sys
@@ -24,28 +26,21 @@ import torch
 from mqslam_tpu_torch import resolve_device
 
 
-def run(base_dir, base_name, nr_cameras, fps, use_odometry=True,
-        full_optimize_at_second_batch=True, start_time=0.0,
-        first_frame_after=True, mode=0, run_from_generated=False,
-        max_iters=60, cg_iters=1000, verbose=True, device=None):
-    """One BA run; returns (BAVariables, cost history: mode 0 LM's, then the
-    polish's accepted costs; modes 1 and 2 one cost a step)."""
+def refine(data, use_odometry=True, mode=0, max_iters=60, cg_iters=1000,
+           verbose=False, device=None):
+    """The solve of one loaded ``BAData``: validation, the problem on
+    ``device`` (None: the CUDA device), then mode 0's LM and float64 polish
+    or modes 1 and 2's incremental solve.  Returns (BAVariables on the
+    device, the solve's costs, the polish's costs).  The solve's: mode 0
+    the start's and one an LM outer iteration; modes 1 and 2 one a step.
+    The polish's: its float64 cost of the LM's answer and one an
+    iteration; none in modes 1 and 2."""
     from mqslam_tpu_torch.ba import incremental as binc
     from mqslam_tpu_torch.ba import problem as bp, solver as bs
-    from mqslam_tpu_torch.ba import synthetic as bsyn
     from mqslam_tpu_torch.ba.polish64 import polish64
     from mqslam_tpu_torch.ba.validate import (
         validate_data_integrity, validate_sufficiently_constrained)
-    from mqslam_tpu_torch.core import so3
-    from mqslam_tpu_torch.io import ba_info, pcd, tum
-    from mqslam_tpu_torch.io.nputil import matrix_to_quat_np
 
-    device = resolve_device(device)
-    if run_from_generated:
-        data = bsyn.generate_cube_scenario(nr_cameras=nr_cameras)
-    else:
-        data = ba_info.load_ba_data(base_dir, base_name, nr_cameras, fps,
-                                    start_time, first_frame_after)
     validate_data_integrity(data)
     validate_sufficiently_constrained(data, use_odometry)
 
@@ -60,11 +55,35 @@ def run(base_dir, base_name, nr_cameras, fps, use_odometry=True,
         # cost floor; the last stretch of the valley is below that
         # resolution
         v, hist64 = polish64(prob, v, max_iters=12, verbose=verbose)
-        hist = hist + hist64[1:]
+        return v, hist, hist64
+    v, hist = binc.incremental_solve(data, prob, use_odometry=use_odometry,
+                                     verbose=verbose)
+    return v, hist, []
+
+
+def run(base_dir, base_name, nr_cameras, fps, use_odometry=True,
+        full_optimize_at_second_batch=True, start_time=0.0,
+        first_frame_after=True, mode=0, run_from_generated=False,
+        max_iters=60, cg_iters=1000, verbose=True, device=None):
+    """One BA run over a dump (or the cube scenario) through ``refine``,
+    written out in the reference's -BA naming; returns (BAVariables, cost
+    history: mode 0 LM's, then the polish's; modes 1 and 2 one cost a
+    step)."""
+    from mqslam_tpu_torch.ba import synthetic as bsyn
+    from mqslam_tpu_torch.core import so3
+    from mqslam_tpu_torch.io import ba_info, pcd, tum
+    from mqslam_tpu_torch.io.nputil import matrix_to_quat_np
+
+    device = resolve_device(device)
+    if run_from_generated:
+        data = bsyn.generate_cube_scenario(nr_cameras=nr_cameras)
     else:
-        v, hist = binc.incremental_solve(data, prob,
-                                         use_odometry=use_odometry,
-                                         verbose=verbose)
+        data = ba_info.load_ba_data(base_dir, base_name, nr_cameras, fps,
+                                    start_time, first_frame_after)
+    v, hist, hist64 = refine(data, use_odometry=use_odometry, mode=mode,
+                             max_iters=max_iters, cg_iters=cg_iters,
+                             verbose=verbose, device=device)
+    hist = hist + hist64[1:]
     if verbose:
         print(f"cost: {hist[0]:.4e} -> {hist[-1]:.4e} "
               f"({len(hist) - 1} accepted iterations)")
@@ -75,18 +94,14 @@ def run(base_dir, base_name, nr_cameras, fps, use_odometry=True,
     pose_t = v.pose_t.cpu().numpy()
     # float32 rotations, as the JAX package's so3.exp gives them
     Rs = so3.exp(v.pose_r.cpu()).numpy()
-    valid = prob.pose_valid.cpu().numpy()
     for c in range(nr_cameras):
         ts, locs, quats = [], [], []
         for f in range(S):
             idx = c * S + f
-            if not valid[idx]:
-                continue
             node = data.poses[c][f]
-            t_stamp = node[1] if node is not None else (
-                start_time + (f + (1 if first_frame_after else 0))
-                / max(fps, 1))
-            ts.append(t_stamp)
+            if node is None:        # a hole: not optimized, not written
+                continue
+            ts.append(node[1])
             locs.append(pose_t[idx])
             quats.append(matrix_to_quat_np(Rs[idx]))
         tum.save_trajectory(fn.trajectories_out[c], tum.CamTrajectory(
