@@ -33,9 +33,11 @@ Needs one CUDA device (exits non-zero without one), the CUDA toolkit's
      width: 16 divergent agents, 640x480, 33 frames, ``TrackerConfig()``
      defaults — with the launch counts set to 0 just before and read just
      after; then its first 5 agents streamed one frame-group a call
-     (``fleet_graph``), the track phase's CUDA graph against the same
-     runner with the phase eager: bit-equal groups, no returned tensor
-     overwritten by a later replay, one ``fleet.track_graph`` span a group,
+     (``fleet_graph``), the track phase's and the keyframe branch's CUDA
+     graphs against the same runner with both eager: bit-equal groups, no
+     returned tensor overwritten by a later replay (within one call too),
+     one ``fleet.track_graph`` span a group and one ``fleet.kf_graph`` a
+     keyframe group,
   4. drives the single-agent path — ``run_frontend`` at full width: one
      agent, 1280x720, 49 frames, the same defaults, BA data collected — the
      same way, then the command line over PNG files in a temporary
@@ -1021,15 +1023,20 @@ FLEET_GRAPH_AGENTS = 5    # the benchmark's fleet (benchmark/configs/)
 
 
 def phase_fleet_graph(cal, config, states, imgs, device):
-    """The fleet runner's track phase as a CUDA graph (``utils.cuda_graph``)
-    against the same runner with the phase run eagerly (``Graphed`` stood in
-    by the function itself), each streamed one frame-group a call as the
+    """The fleet runner's two CUDA graphs (``utils.cuda_graph``: the track
+    phase on every frame-group, the keyframe branch on keyframe groups)
+    against the same runner with both run eagerly (``Graphed`` stood in by
+    the function itself), each streamed one frame-group a call as the
     benchmark's fleet is: the first 5 agents of the main path, 32 groups,
     one generator carried across calls.  Every group's outputs and carried
     states bit-equal; the outputs and states of each group, cloned before
-    the next call, unchanged after the next replay; ``fleet.track_graph``
-    recorded once a group; ``pnp_ransac``'s own draw bit-equal, on the
-    card, to the runner's draw made outside and handed in."""
+    the next call, unchanged after the next replay; the graphed runner over
+    all 32 groups in one call bit-equal to the eager stream group by group
+    (each keyframe group's outputs outlive the replays after it within the
+    call); ``fleet.track_graph`` recorded once a group, ``fleet.kf_graph``
+    once a keyframe group (as ``fleet.keyframe``); ``pnp_ransac``'s own
+    draw bit-equal, on the card, to the runner's draw made outside and
+    handed in."""
     from mqslam_tpu_torch.frontend import tracker as trk
     from mqslam_tpu_torch.utils import cuda_graph, profiling
 
@@ -1079,13 +1086,24 @@ def phase_fleet_graph(cal, config, states, imgs, device):
     for f, (a, b) in enumerate(zip(ref, got)):
         require(same(a, b),
                 f"fleet_graph: group {f} differs from the eager phase")
-    acc = torch.stack([g[len(trk.TrackerState._fields)] for g in got])
-    kf_groups = int((acc == 2).reshape(n, -1).any(dim=1).sum())
-    require(kf_groups > 0 and bool((acc > 0).all()),
+    n_st = len(trk.TrackerState._fields)
+    acc = torch.stack([g[n_st] for g in got])
+    is_kf = (acc == 2).reshape(n, -1).any(dim=1).tolist()
+    kf_groups = sum(is_kf)
+    require(kf_groups > 1 and bool((acc > 0).all()),
             f"fleet_graph: {kf_groups} keyframe groups, accepted {acc}")
     require(counts.get("fleet.track_graph") == n
-            and counts.get("fleet.track_phase") == n,
+            and counts.get("fleet.track_phase") == n
+            and counts.get("fleet.kf_graph") == kf_groups
+            and counts.get("fleet.keyframe") == kf_groups,
             f"fleet_graph: span counts {counts}")
+    # all groups in one call: the keyframe graph replays many times before
+    # the call stacks its outputs
+    st, outs = graphed(st0, frames,
+                       generator=torch.Generator(device=device).manual_seed(3))
+    require(same(st, ref[-1][:n_st]) and all(
+        same([x[f:f + 1] for x in outs], ref[f][n_st:]) for f in range(n)),
+        "fleet_graph: one call over every group differs from the stream")
     # the draw: pnp_ransac's own against the same call made outside
     _, _, step_pyr = trk.make_step(cal, config, device)
     pf = step_pyr.post_flow
@@ -1101,12 +1119,27 @@ def phase_fleet_graph(cal, config, states, imgs, device):
     require(same(inside, outside),
             "fleet_graph: the draw made outside differs from pnp_ransac's")
     med = lambda s: statistics.median(s[1:]) * 1e3
+    # the first keyframe group captures the keyframe graph
+    first_kf = is_kf.index(True)
+
+    def by_kind(s, kf):
+        xs = [x for f, x in enumerate(s)
+              if f not in (0, first_kf) and is_kf[f] == kf]
+        return statistics.median(xs) * 1e3 if xs else None
     return dict(agents=A, frame_groups=n, keyframe_groups=kf_groups,
                 max_tracks=K, ransac_hypotheses=H, bit_equal=True,
-                outputs_kept=True, span_counts=counts,
+                outputs_kept=True, one_call_bit_equal=True,
+                span_counts=counts,
                 group_ms_median=dict(eager=med(eager_s), graph=med(graph_s)),
+                keyframe_group_ms_median=dict(eager=by_kind(eager_s, True),
+                                              graph=by_kind(graph_s, True)),
+                other_group_ms_median=dict(eager=by_kind(eager_s, False),
+                                           graph=by_kind(graph_s, False)),
                 first_group_ms=dict(eager=eager_s[0] * 1e3,
-                                    graph=graph_s[0] * 1e3))
+                                    graph=graph_s[0] * 1e3),
+                first_keyframe_group_ms=dict(
+                    eager=eager_s[first_kf] * 1e3,
+                    graph=graph_s[first_kf] * 1e3))
 
 
 def phase_single_agent(single, config, device, tile_launches_before):
@@ -3454,7 +3487,8 @@ def main():
         log("phase main_path (16 agents)")
         main_path, k1["launches"] = phase_main_path(cal, config, states,
                                                     imgs, seqs, device)
-        log("phase fleet_graph (5 agents, graphed track phase vs eager)")
+        log("phase fleet_graph (5 agents, graphed track phase and "
+            "keyframe branch vs eager)")
         emit({"fleet_graph": phase_fleet_graph(cal, config, states, imgs,
                                                device)})
         log("phase single_agent")

@@ -526,8 +526,17 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
     thousands of small kernels, which the host would otherwise launch one by
     one.  Its RANSAC draw is made before the replay, by the call
     ``pnp_ransac`` makes from the same generator, so the graph's outputs are
-    bit-equal to the eager phase's.  Nothing the runner returns is a buffer
-    of the graph.
+    bit-equal to the eager phase's.
+
+    The keyframe branch (``kf_phase``, ``finalize``, the refill and the
+    per-agent select: ``run.kf_branch``, one pure tensor function of the
+    state's and the track phase's fields, the level-0 tiles and the frames)
+    is a second CUDA graph on a CUDA device, captured on the first
+    frame-group where an agent keyframed and replayed, inside the span
+    ``fleet.kf_graph``, on every such group after it; on the CPU it runs
+    eagerly.  Each keyframe group's outputs are copied out of the graph
+    before the next replay, and the states a call returns are copied out
+    too: nothing the runner returns is a buffer of either graph.
 
     ``collect=True`` appends the per-frame track-level outputs (cur_uv,
     track_alive, track_triangulated, new_landmarks, pnp_inlier, objp_idx)
@@ -537,7 +546,24 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
     pad = lk.lk_pad(config.lk_win)
     pf = step_pyr.post_flow
     K = config.max_tracks
-    graphed = None
+    n_st, n_t = len(TrackerState._fields), len(TrackInterm._fields)
+    returned = ("accepted", "rvec", "tvec") + (
+        ("cur_uv", "track_alive", "track_triangulated", "new_landmarks",
+         "pnp_inlier", "objp_idx") if collect else ())
+
+    def kf_branch(*args):
+        """(state fields, track-phase fields, tiles0, new) -> (states,
+        StepOutput) of a frame-group where some agent keyframed."""
+        states = TrackerState(*args[:n_st])
+        t = TrackInterm(*args[n_st:n_st + n_t])
+        tiles0, new = args[n_st + n_t:]
+        states, out = pf.finalize(states, t, pf.kf_phase(states, t, tiles0))
+        # full-image corner detection per agent is the most expensive op
+        # of the body: only on frame-groups where SOME agent keyframed
+        return _select_states(out.accepted == 2, states,
+                              _refill(states, new, config)), out
+
+    graphed = kf_graphed = None
     if device.type == "cuda":
         def track(active, triangulated, objp, objp_idx, base_uv, new_uv,
                   st_of, err_of, scores):
@@ -547,6 +573,7 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
                              objp=objp, objp_idx=objp_idx, base_uv=base_uv)
             return pf.track_phase(st, new_uv, st_of, err_of, scores)
         graphed = cuda_graph.Graphed(track, device)
+        kf_graphed = cuda_graph.Graphed(kf_branch, device)
 
     def atlas_pyramid(imgs_a):
         """[A, H, W] -> per-level [A*Hp, Wp] vertical atlases (each tile
@@ -561,6 +588,8 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
         with profiling.span("fleet.group", device):
             return _run(states, imgs, ransac_scores, generator, stage_ms)
 
+    run.kf_branch = kf_branch
+
     def _run(states, imgs, ransac_scores, generator, stage_ms):
         with profiling.span("fleet.upload", device):
             imgs = torch.as_tensor(imgs, dtype=torch.float32).to(device)
@@ -569,7 +598,7 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
         clock = profiling.Stages(stage_ms, device)
         with profiling.span("fleet.pyramid", device):
             prev_atlas = atlas_pyramid(imgs[:, 0])
-        outs = []
+        outs, replayed = [], False
         for idx in range(imgs.shape[1] - 1):
             clock.mark()
             new = imgs[:, idx + 1]
@@ -601,26 +630,29 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
             tiles0 = new_atlas[0].reshape(A, -1, new_atlas[0].shape[1])
             with profiling.span("fleet.kf_gate", device, drained=True):
                 any_kf = bool(t.is_kf.any())
-            # the keyframe span covers kf_phase, finalize and the refill;
-            # the stage runs from the track phase's end on every group
+            # the keyframe span covers kf_phase, finalize, the refill and,
+            # on a card, the graph's copy-out; the stage runs from the track
+            # phase's end on every group
             with clock.span("fleet.keyframe" if any_kf else None,
                             "keyframe_refill"):
-                kf_out = pf.kf_phase(states, t, tiles0) if any_kf \
-                    else pf.no_kf_phase(states, t)
-                states, out = pf.finalize(states, t, kf_out)
-                if any_kf:
-                    # full-image corner detection per agent is the most
-                    # expensive op of the body: only on frame-groups where
-                    # SOME agent keyframed
-                    states = _select_states(out.accepted == 2, states,
-                                            _refill(states, new, config))
-            res = (out.accepted, out.rvec, out.tvec)
-            if collect:
-                res = res + (out.cur_uv, out.track_alive,
-                             out.track_triangulated, out.new_landmarks,
-                             out.pnp_inlier, out.objp_idx)
-            outs.append(res)
+                if not any_kf:
+                    states, out = pf.finalize(states, t,
+                                              pf.no_kf_phase(states, t))
+                elif kf_graphed is None:
+                    states, out = kf_branch(*states, *t, tiles0, new)
+                else:
+                    with profiling.span("fleet.kf_graph", device):
+                        states, out = kf_graphed(*states, *t, tiles0, new)
+                    # the next replay overwrites the graph's outputs
+                    out = out._replace(**{k: getattr(out, k).clone()
+                                          for k in returned})
+                    replayed = True
+            outs.append(tuple(getattr(out, k) for k in returned))
             prev_atlas = new_atlas
+        if replayed:
+            # the states of a keyframe group are the graph's outputs, and
+            # finalize passes group_id through the groups after it
+            states = TrackerState(*(x.clone() for x in states))
         return states, tuple(torch.stack(x) for x in zip(*outs))
 
     return run

@@ -378,3 +378,93 @@ def test_track_phase_moves_no_host_data(fleet, both_runs):
     with HostOps() as host:
         pf.track_phase(st, *flow, drawn)
     assert not host.ops, host.ops
+
+
+@pytest.fixture(scope="module")
+def kf_group(fleet, both_runs):
+    """The first frame-group where an agent keyframed, as the fleet runner
+    reaches its keyframe branch: the runner, the states before the group,
+    the track phase's intermediates, the level-0 tiles and the new frames."""
+    cfg = fleet["tcfg"]
+    g = int(np.argmax((both_runs["jax"][1] == 2).any(axis=1)))
+    run = ttrk.make_multi_agent_runner(fleet["tcal"], cfg, collect=True,
+                                       device="cpu")
+    st = both_runs["tstates"]
+    if g:
+        st, _ = run(st, both_runs["imgs"][:, :g + 1],
+                    ransac_scores=both_runs["scores"])
+    A, K = st.active.shape
+    pad = tlk.lk_pad(cfg.lk_win)
+    frames = torch.tensor(both_runs["imgs"][:, g:g + 2])
+    pyrs = [tlk.build_pyramid(frames[:, i], cfg.lk_levels, pad=pad)
+            for i in (0, 1)]
+    atlas = [[lv.reshape(-1, lv.shape[-1]) for lv in p] for p in pyrs]
+    new_uv, st_of, err_of = tlk.lk_track_pyr(
+        atlas[0], atlas[1], st.cur_uv.reshape(A * K, 2),
+        st.active.reshape(A * K), win=cfg.lk_win, prepad=True,
+        atlas_tiles=A, atlas_contiguous=True)
+    _, _, step_pyr = ttrk.make_step(fleet["tcal"], cfg, device="cpu")
+    pf = step_pyr.post_flow
+    t = pf.track_phase(st, new_uv.reshape(A, K, 2), st_of.reshape(A, K),
+                       err_of.reshape(A, K),
+                       torch.tensor(both_runs["scores"][g]))
+    assert bool(t.is_kf.any())
+    return dict(g=g, run=run, pf=pf, cfg=cfg, states=st, t=t,
+                tiles0=pyrs[1][0], new=frames[:, 1])
+
+
+def test_keyframe_branch_moves_no_host_data(kf_group):
+    """Once the Jacobi constants are cached (the graph's warm-up does
+    that), the fleet runner's keyframe branch (kf_phase, finalize, the
+    refill and the select, as ``run.kf_branch`` wraps them for the CUDA
+    graph) makes no host tensor, no copy and no read-back."""
+    k = kf_group
+    args = (*k["states"], *k["t"], k["tiles0"], k["new"])
+    k["run"].kf_branch(*args)
+    with HostOps() as host:
+        k["run"].kf_branch(*args)
+    assert not host.ops, host.ops
+
+
+@pytest.mark.parametrize("keyframed", [(True, True), (True, False)])
+def test_keyframe_branch_is_the_inline_sequence(kf_group, both_runs,
+                                                keyframed):
+    """``run.kf_branch`` on contiguous copies of its inputs (what the CUDA
+    graph's static buffers hold) gives, bit for bit, the states and outputs
+    of the inline sequence kf_phase -> finalize -> refill -> select on the
+    tensors as the runner holds them: on the group as it came, where both
+    agents keyframed, and with the second agent's keyframe taken away (the
+    select keeps its state unrefilled); on the group as it came, the
+    runner's own states and outputs too."""
+    k = kf_group
+    pf, st = k["pf"], k["states"]
+    t = k["t"]._replace(is_kf=k["t"].is_kf & torch.tensor(keyframed))
+    assert t.is_kf.tolist() == list(keyframed)
+    kf_out = pf.kf_phase(st, t, k["tiles0"])
+    want_st, want_out = pf.finalize(st, t, kf_out)
+    want_st = ttrk._select_states(want_out.accepted == 2, want_st,
+                                  ttrk._refill(want_st, k["new"], k["cfg"]))
+
+    def static(a):
+        s = torch.empty(a.shape, dtype=a.dtype)
+        s.copy_(a)
+        return s
+    got_st, got_out = k["run"].kf_branch(*(static(a) for a in (
+        *st, *t, k["tiles0"], k["new"])))
+    for name, x, y in zip(want_st._fields + want_out._fields,
+                          want_st + want_out, got_st + got_out):
+        np.testing.assert_array_equal(x.numpy(), y.numpy(), name)
+    if not all(keyframed):
+        assert not torch.equal(got_st.active[1], ttrk._refill(
+            got_st, k["new"], k["cfg"]).active[1])
+        return
+    g = k["g"]
+    fin, outs = k["run"](st, both_runs["imgs"][:, g:g + 2],
+                         ransac_scores=both_runs["scores"][g:g + 1])
+    for name, x, y in zip(ttrk.TrackerState._fields, fin, got_st):
+        np.testing.assert_array_equal(x.numpy(), y.numpy(), name)
+    for name, x in zip(("accepted", "rvec", "tvec", "cur_uv", "track_alive",
+                        "track_triangulated", "new_landmarks", "pnp_inlier",
+                        "objp_idx"), outs):
+        np.testing.assert_array_equal(x[0].numpy(),
+                                      getattr(got_out, name).numpy(), name)
