@@ -1035,9 +1035,10 @@ def phase_fleet_graph(cal, config, states, imgs, device):
     (each keyframe group's outputs outlive the replays after it within the
     call); ``fleet.track_graph`` recorded once a group, ``fleet.kf_graph``
     once a keyframe group (as ``fleet.keyframe``); ``pnp_ransac``'s own
-    draw bit-equal, on the card, to the runner's draw made outside and
-    handed in."""
+    draw bit-equal, on the card, to ``pnp.ransac_draw``'s made outside and
+    handed in, as the runner makes it."""
     from mqslam_tpu_torch.frontend import tracker as trk
+    from mqslam_tpu_torch.ops import pnp
     from mqslam_tpu_torch.utils import cuda_graph, profiling
 
     A, n = FLEET_GRAPH_AGENTS, imgs.shape[1] - 1
@@ -1070,7 +1071,7 @@ def phase_fleet_graph(cal, config, states, imgs, device):
     graphed = trk.make_multi_agent_runner(cal, config, collect=True,
                                           device=device)
     real = cuda_graph.Graphed
-    cuda_graph.Graphed = lambda fn, device: fn
+    cuda_graph.Graphed = lambda fn, device, name: fn
     try:
         eager = trk.make_multi_agent_runner(cal, config, collect=True,
                                             device=device)
@@ -1113,8 +1114,8 @@ def phase_fleet_graph(cal, config, states, imgs, device):
             torch.zeros(A, K, device=device))
     inside = pf.track_phase(st0, *flow, None,
                             torch.Generator(device=device).manual_seed(9))
-    drawn = torch.rand((A, H, K), dtype=torch.float32, device=device,
-                       generator=torch.Generator(device=device).manual_seed(9))
+    drawn = pnp.ransac_draw(A, H, K, torch.float32, device,
+                            torch.Generator(device=device).manual_seed(9))
     outside = pf.track_phase(st0, *flow, drawn)
     require(same(inside, outside),
             "fleet_graph: the draw made outside differs from pnp_ransac's")

@@ -520,23 +520,18 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
     (the ``any(is_kf)`` read-back) and, on groups where an agent keyframed,
     ``fleet.keyframe`` (the keyframe phase, finalize and the refill).
 
-    On a CUDA device the track phase is one CUDA graph (``utils.cuda_graph``),
-    captured on the first frame-group of each shape and replayed on every
-    one after it, inside the span ``fleet.track_graph``: the phase is many
-    thousands of small kernels, which the host would otherwise launch one by
-    one.  Its RANSAC draw is made before the replay, by the call
-    ``pnp_ransac`` makes from the same generator, so the graph's outputs are
-    bit-equal to the eager phase's.
-
-    The keyframe branch (``kf_phase``, ``finalize``, the refill and the
-    per-agent select: ``run.kf_branch``, one pure tensor function of the
-    state's and the track phase's fields, the level-0 tiles and the frames)
-    is a second CUDA graph on a CUDA device, captured on the first
-    frame-group where an agent keyframed and replayed, inside the span
-    ``fleet.kf_graph``, on every such group after it; on the CPU it runs
-    eagerly.  Each keyframe group's outputs are copied out of the graph
-    before the next replay, and the states a call returns are copied out
-    too: nothing the runner returns is a buffer of either graph.
+    The track phase and the keyframe branch (``kf_phase``, ``finalize``,
+    the refill and the per-agent select: ``run.kf_branch``) each go through
+    a ``utils.cuda_graph.Graphed``: on a card, one CUDA graph captured on
+    the first frame-group of each shape (the first keyframe group, for the
+    branch) and replayed, inside the span ``fleet.track_graph`` or
+    ``fleet.kf_graph``, on every one after it; elsewhere, the function run
+    eagerly.  The track phase is many thousands of small kernels, which the
+    host would otherwise launch one by one.  Its RANSAC draw
+    (``pnp.ransac_draw``) is made before the call, as ``pnp_ransac`` makes
+    it, so the graph's outputs are bit-equal to the eager phase's.  Each
+    keyframe group's returned outputs, and the states the call returns, are
+    copies: nothing the runner returns is a buffer of either graph.
 
     ``collect=True`` appends the per-frame track-level outputs (cur_uv,
     track_alive, track_triangulated, new_landmarks, pnp_inlier, objp_idx)
@@ -563,17 +558,16 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
         return _select_states(out.accepted == 2, states,
                               _refill(states, new, config)), out
 
-    graphed = kf_graphed = None
-    if device.type == "cuda":
-        def track(active, triangulated, objp, objp_idx, base_uv, new_uv,
-                  st_of, err_of, scores):
-            # the fields the track phase reads; the others cannot be read
-            st = TrackerState._make([None] * len(TrackerState._fields))
-            st = st._replace(active=active, triangulated=triangulated,
-                             objp=objp, objp_idx=objp_idx, base_uv=base_uv)
-            return pf.track_phase(st, new_uv, st_of, err_of, scores)
-        graphed = cuda_graph.Graphed(track, device)
-        kf_graphed = cuda_graph.Graphed(kf_branch, device)
+    def track(active, triangulated, objp, objp_idx, base_uv, new_uv, st_of,
+              err_of, scores):
+        # the fields the track phase reads; the others cannot be read
+        st = TrackerState._make([None] * n_st)
+        st = st._replace(active=active, triangulated=triangulated, objp=objp,
+                         objp_idx=objp_idx, base_uv=base_uv)
+        return pf.track_phase(st, new_uv, st_of, err_of, scores)
+
+    graphed = cuda_graph.Graphed(track, device, "fleet.track_graph")
+    kf_graphed = cuda_graph.Graphed(kf_branch, device, "fleet.kf_graph")
 
     def atlas_pyramid(imgs_a):
         """[A, H, W] -> per-level [A*Hp, Wp] vertical atlases (each tile
@@ -598,7 +592,7 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
         clock = profiling.Stages(stage_ms, device)
         with profiling.span("fleet.pyramid", device):
             prev_atlas = atlas_pyramid(imgs[:, 0])
-        outs, replayed = [], False
+        outs, keyframed = [], False
         for idx in range(imgs.shape[1] - 1):
             clock.mark()
             new = imgs[:, idx + 1]
@@ -610,48 +604,38 @@ def make_multi_agent_runner(cal: cam_mod.Cal3DS2, config: TrackerConfig,
                     states.active.reshape(A * K), win=config.lk_win,
                     prepad=True, atlas_tiles=A, atlas_contiguous=True)
             with clock.span("fleet.track_phase", "track_phase"):
-                flow = (new_uv.reshape(A, K, 2), st_of.reshape(A, K),
-                        err_of.reshape(A, K))
-                sc = None if ransac_scores is None else \
-                    torch.as_tensor(ransac_scores[idx]).to(device)
-                if graphed is None:
-                    t = pf.track_phase(states, *flow, sc, generator)
+                if ransac_scores is None:
+                    sc = pnp.ransac_draw(A, config.ransac_hypotheses, K,
+                                         states.objp.dtype, device, generator)
                 else:
-                    if sc is None:
-                        # pnp_ransac's own draw, outside the graph
-                        sc = torch.rand((A, config.ransac_hypotheses, K),
-                                        dtype=states.objp.dtype,
-                                        device=device, generator=generator)
-                    with profiling.span("fleet.track_graph", device):
-                        t = graphed(states.active, states.triangulated,
-                                    states.objp, states.objp_idx,
-                                    states.base_uv, *flow, sc)
+                    sc = torch.as_tensor(ransac_scores[idx]).to(device)
+                t = graphed(states.active, states.triangulated, states.objp,
+                            states.objp_idx, states.base_uv,
+                            new_uv.reshape(A, K, 2), st_of.reshape(A, K),
+                            err_of.reshape(A, K), sc)
             # per-agent padded level-0 tiles for the keyframe color sampling
             tiles0 = new_atlas[0].reshape(A, -1, new_atlas[0].shape[1])
             with profiling.span("fleet.kf_gate", device, drained=True):
                 any_kf = bool(t.is_kf.any())
-            # the keyframe span covers kf_phase, finalize, the refill and,
-            # on a card, the graph's copy-out; the stage runs from the track
-            # phase's end on every group
+            # the keyframe span covers kf_phase, finalize, the refill and
+            # the copy-out; the stage runs from the track phase's end on
+            # every group
             with clock.span("fleet.keyframe" if any_kf else None,
                             "keyframe_refill"):
                 if not any_kf:
                     states, out = pf.finalize(states, t,
                                               pf.no_kf_phase(states, t))
-                elif kf_graphed is None:
-                    states, out = kf_branch(*states, *t, tiles0, new)
                 else:
-                    with profiling.span("fleet.kf_graph", device):
-                        states, out = kf_graphed(*states, *t, tiles0, new)
-                    # the next replay overwrites the graph's outputs
+                    states, out = kf_graphed(*states, *t, tiles0, new)
+                    # on a card the next replay overwrites the outputs
                     out = out._replace(**{k: getattr(out, k).clone()
                                           for k in returned})
-                    replayed = True
+                    keyframed = True
             outs.append(tuple(getattr(out, k) for k in returned))
             prev_atlas = new_atlas
-        if replayed:
-            # the states of a keyframe group are the graph's outputs, and
-            # finalize passes group_id through the groups after it
+        if keyframed:
+            # the states of a keyframe group are the graph's outputs on a
+            # card, and finalize passes group_id through the groups after it
             states = TrackerState(*(x.clone() for x in states))
         return states, tuple(torch.stack(x) for x in zip(*outs))
 

@@ -17,7 +17,7 @@ from mqslam_tpu_torch.core import camera as cam_mod, se3, so3
 from mqslam_tpu_torch.ops import homography as homog, linalg
 
 __all__ = ["pnp_dlt", "pnp_planar", "pnp_solve", "pnp_refine",
-           "pnp_ransac", "reprojection_error"]
+           "ransac_draw", "pnp_ransac", "reprojection_error"]
 
 
 def _polar_rotation(M):
@@ -276,6 +276,15 @@ def pnp_refine(objp, uv_px, cal, rvec0, tvec0, valid=None, iters: int = 10,
     return params[..., :3], params[..., 3:]
 
 
+def ransac_draw(B, n_hyp, K, dtype, device, generator):
+    """``pnp_ransac``'s draw for ``B`` problems of ``K`` points: ``scores``
+    [B, n_hyp, K], uniform in [0, 1), from ``generator``.  Made by a caller
+    and handed in, it gives the result of ``pnp_ransac`` drawing from the
+    same generator and leaves the generator in the same state."""
+    return torch.rand((B, n_hyp, K), dtype=dtype, device=device,
+                      generator=generator)
+
+
 def pnp_ransac(objp, uv_px, cal, valid, scores=None, generator=None,
                n_hyp: int = 128, sample_size: int = 6,
                reproj_threshold: float = 2.0, refine_iters: int = 5):
@@ -288,7 +297,8 @@ def pnp_ransac(objp, uv_px, cal, valid, scores=None, generator=None,
     The minimal sets come from ``scores`` [..., n_hyp, K], uniform draws in
     [0, 1): hypothesis h takes the ``sample_size`` valid points with the
     smallest scores.  When ``scores`` is None they are drawn from
-    ``generator`` (a ``torch.Generator`` on the tensors' device).
+    ``generator`` (a ``torch.Generator`` on the tensors' device) by
+    ``ransac_draw``.
 
     Returns (rvec, tvec, inlier_mask [..., K], n_inliers). The winning
     hypothesis is GN-refined on its inlier set."""
@@ -307,8 +317,7 @@ def pnp_ransac(objp, uv_px, cal, valid, scores=None, generator=None,
     # Random valid minimal sets: invalid points pushed to the end, take the
     # first `sample_size` after a stable argsort.
     if scores is None:
-        scores = torch.rand((B, n_hyp, K), dtype=dt, device=dev,
-                            generator=generator)
+        scores = ransac_draw(B, n_hyp, K, dt, dev, generator)
     scores = scores.reshape((B, -1, K)).to(dt)
     scores = scores + (1.0 - valid.to(dt))[:, None, :] * 10.0
     sel = torch.argsort(scores, dim=-1, stable=True)[..., :sample_size]

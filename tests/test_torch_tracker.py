@@ -19,7 +19,8 @@ from mqslam_tpu.ops import features as jfeat
 from mqslam_tpu_torch import convert
 from mqslam_tpu_torch.core import quat as tquat, se3 as tse3
 from mqslam_tpu_torch.frontend import synthetic as tsyn, tracker as ttrk
-from mqslam_tpu_torch.ops import features as tfeat, lk as tlk
+from mqslam_tpu_torch.ops import features as tfeat, lk as tlk, pnp as tpnp
+from mqslam_tpu_torch.utils import cuda_graph
 
 F, SIZE, PLANE_Z = 300.0, (320, 240), 4.0
 CAL9 = np.array([F, F, 0, SIZE[0] / 2, SIZE[1] / 2, 0, 0, 0, 0], np.float32)
@@ -285,6 +286,36 @@ def test_landmark_store_full(fleet, both_runs):
                                       full_final.objp[a, :M].numpy())
 
 
+def test_cpu_fleet_runner_goes_through_both_graphed(fleet, both_runs,
+                                                    monkeypatch):
+    """On the CPU the fleet runner takes the card's one path: the track
+    phase through its ``Graphed`` once a frame-group, the keyframe branch
+    through its own once a keyframe group (each run eagerly there), with
+    outputs bit-equal to the runner's unwatched run and ``accepted`` equal
+    to the JAX run's."""
+    calls = collections.Counter()
+
+    class Counted(cuda_graph.Graphed):
+        def __call__(self, *args):
+            calls[self.name] += 1
+            return super().__call__(*args)
+    monkeypatch.setattr(cuda_graph, "Graphed", Counted)
+    run = ttrk.make_multi_agent_runner(fleet["tcal"], fleet["tcfg"],
+                                       device="cpu")
+    final, outs = run(both_runs["tstates"], both_runs["imgs"],
+                      ransac_scores=both_runs["scores"])
+    jacc = both_runs["jax"][1]
+    kf_groups = int((jacc == 2).any(axis=1).sum())
+    assert kf_groups >= 1
+    assert calls == {"fleet.track_graph": N_FRAMES - 1,
+                     "fleet.kf_graph": kf_groups}
+    np.testing.assert_array_equal(outs[0].numpy(), jacc)
+    ref_final, ref_outs = both_runs["torch"]
+    for x, y in zip(tuple(final) + tuple(outs),
+                    tuple(ref_final) + tuple(ref_outs)):
+        assert torch.equal(x, y)
+
+
 class HostOps(TorchDispatchMode):
     """Counts the ATen calls that make or move host data: ``lift_fresh``
     (``torch.tensor`` and a Python number stored into a tensor),
@@ -323,7 +354,7 @@ def _first_group(fleet, both_runs):
 
 def test_ransac_draw_made_outside_is_pnp_ransacs(fleet, both_runs):
     """The fleet runner's CUDA graph takes the RANSAC draw as ``scores``,
-    made before the replay by the call ``pnp_ransac`` makes: handed in, it
+    made before the replay by ``pnp.ransac_draw``: handed in, it
     gives the track phase of ``pnp_ransac`` drawing from a generator seeded
     alike, bit for bit, and leaves the generator where ``pnp_ransac`` does."""
     cfg = fleet["tcfg"]
@@ -332,9 +363,8 @@ def test_ransac_draw_made_outside_is_pnp_ransacs(fleet, both_runs):
     st, flow = _first_group(fleet, both_runs)
     g_in, g_out = (torch.Generator().manual_seed(21) for _ in range(2))
     inside = pf.track_phase(st, *flow, None, g_in)
-    drawn = torch.rand((st.active.shape[0], cfg.ransac_hypotheses,
-                        cfg.max_tracks), dtype=torch.float32,
-                       generator=g_out)
+    drawn = tpnp.ransac_draw(st.active.shape[0], cfg.ransac_hypotheses,
+                             cfg.max_tracks, torch.float32, "cpu", g_out)
     outside = pf.track_phase(st, *flow, drawn)
     for name, x, y in zip(ttrk.TrackInterm._fields, inside, outside):
         np.testing.assert_array_equal(x.numpy(), y.numpy(), name)
@@ -372,8 +402,9 @@ def test_track_phase_moves_no_host_data(fleet, both_runs):
     _, _, step_pyr = ttrk.make_step(fleet["tcal"], cfg, device="cpu")
     pf = step_pyr.post_flow
     st, flow = _first_group(fleet, both_runs)
-    drawn = torch.rand((st.active.shape[0], cfg.ransac_hypotheses,
-                        cfg.max_tracks), generator=torch.Generator())
+    drawn = tpnp.ransac_draw(st.active.shape[0], cfg.ransac_hypotheses,
+                             cfg.max_tracks, torch.float32, "cpu",
+                             torch.Generator())
     pf.track_phase(st, *flow, drawn)
     with HostOps() as host:
         pf.track_phase(st, *flow, drawn)

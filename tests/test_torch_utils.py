@@ -14,7 +14,7 @@ from mqslam_tpu.studies import rolling_shutter as jrs
 from mqslam_tpu_torch.core import so3
 from mqslam_tpu_torch.frontend import synthetic
 from mqslam_tpu_torch.studies import rolling_shutter as trs
-from mqslam_tpu_torch.utils import Timer, profiling
+from mqslam_tpu_torch.utils import Timer, cuda_graph, profiling
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,6 +71,36 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path, monkeypatch):
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
     assert prof.key_averages()
+
+
+def test_graphed_off_a_card_is_the_function_itself(monkeypatch):
+    """Off a card ``Graphed`` hands ``fn`` the caller's own tensors and
+    returns ``fn``'s own outputs: no copy in or out, no capture and no
+    span, even while tracing is on."""
+    def no_cuda(*a, **k):
+        raise AssertionError("Graphed reached for CUDA off a card")
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", no_cuda)
+    monkeypatch.setattr(torch.cuda, "Stream", no_cuda)
+    calls = []
+
+    def fn(x, y):
+        calls.append(((x, y), (x + y, y * 2)))
+        return calls[-1][1]
+    g = cuda_graph.Graphed(fn, "cpu", "test.graph")
+    x, y = torch.ones(3), torch.arange(3.0)
+    profiling.reset()
+    profiling.enable()
+    try:
+        outs = [g(x, y) for _ in range(2)]
+        stats = profiling.span_stats()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert len(calls) == 2
+    for (args, ret), out in zip(calls, outs):
+        assert args[0] is x and args[1] is y
+        assert out is ret
+    assert g.graphs == {} and stats == {}
 
 
 def test_classify_tracks(rng):
