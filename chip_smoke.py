@@ -1690,6 +1690,65 @@ def ba_profile(prob, iters=5, top=6):
                   calls_per_iteration=c / n) for k, us, c in rows[:top]])
 
 
+def polish_card_vs_cpu(data, prob, v, steps=40):
+    """``polish64`` at ``refine``'s 12 iterations on the card from the
+    float32 LM answer ``v``: its seconds (after a warm-up polish), launches
+    and device milliseconds an iteration (the start's cost included) under
+    ``torch.profiler``; against the port's polish on the CPU from the same
+    answer: on the whole dump the start's float64 cost (1e-12 relative) and
+    the histories reported, not held (its receding landmarks make the
+    polish roundoff-chaotic there: two runs on the card part by 3e-7), and
+    on the dump's first ``steps`` steps, where float64 resolves the polish,
+    equal lengths and histories within 1e-9 relative."""
+    from mqslam_tpu_torch.ba import polish64, problem as bp, solver as bs
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def on_cpu(p, v):
+        return (bp.problem_to(p, "cpu"),
+                bp.BAVariables(*(x.cpu() for x in v)))
+
+    def gap(a, b):
+        n = min(len(a), len(b))
+        return max(abs(x - y) / abs(y) for x, y in zip(a[:n], b[:n]))
+
+    run = lambda p, v: polish64.polish64(p, v, max_iters=12)
+    run(prob, v)
+    seconds, (_, h_card) = host_seconds(lambda: run(prob, v))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, h_prof = run(prob, v)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    iters = max(len(h_prof) - 1, 1)
+    launches = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    busy_ms = sum(dev_us(e) for e in ka
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    require(busy_ms > 0, "the profiler saw no device time in the polish")
+    _, h_cpu = run(*on_cpu(prob, v))
+    start_gap = gap(h_card[:1], h_cpu[:1])
+    require(start_gap <= 1e-12, f"polish64's start cost on the card is "
+            f"{start_gap} from the CPU's")
+    small = bp.problem_from_ba_data(data, device=prob.device,
+                                    step_limit=steps)
+    v_small = bs.lm_solve(small)[0]
+    _, hs_card = run(small, v_small)
+    _, hs_cpu = run(*on_cpu(small, v_small))
+    small_gap = gap(hs_card, hs_cpu)
+    require(len(hs_card) == len(hs_cpu) and small_gap <= 1e-9,
+            f"polish64 on {steps} steps: card {hs_card} vs CPU {hs_cpu}")
+    return dict(seconds=seconds, history=h_card, cpu_history=h_cpu,
+                gap_rel=gap(h_card, h_cpu), start_gap_rel=start_gap,
+                iterations_profiled=len(h_prof) - 1,
+                launches_per_iteration=launches / iters,
+                device_ms_per_iteration=busy_ms / iters,
+                prefix=dict(steps=steps, history=hs_card,
+                            cpu_history=hs_cpu, gap_rel=small_gap))
+
+
 def tf32_guard(prob, lin, lam=1e-4):
     """The dense solve's products run in full float32 whatever the global
     TF32 setting: with ``allow_tf32`` turned on, the reduced system built
@@ -1726,10 +1785,11 @@ def phase_ba(device):
     of the port's ``compute_cost`` at the checked-in result); ``lm_solve``
     and ``lm_solve_device`` (a wrapper of the same loop) timed, and the
     factor Jacobians; one linearization and dense solve on the card against the CPU
-    (``card_vs_cpu_step``), and ``lm_solve`` against ``lm_solve_device``
-    (centres 1e-3 m)."""
+    (``card_vs_cpu_step``), ``lm_solve`` against ``lm_solve_device``
+    (centres 1e-3 m), and ``polish64`` on the card against the CPU
+    (``polish_card_vs_cpu``)."""
     import shutil
-    from mqslam_tpu_torch.ba import polish64, problem as bp, solver as bs
+    from mqslam_tpu_torch.ba import problem as bp, solver as bs
     from mqslam_tpu_torch.io import ba_info
 
     require(not torch.backends.cuda.matmul.allow_tf32,
@@ -1793,10 +1853,17 @@ def phase_ba(device):
         f"{n_dev} it in {s_dev:.3f} s; linearize {lin_ms:.3f} ms, dense "
         f"solve {solve_ms:.3f} ms; Jacobians {jac_ms:.3f} ms")
     tf32 = tf32_guard(prob, lin)
-    s_polish, (_, h_polish) = timed(lambda: polish64.polish64(
-        prob, v_host, max_iters=12))
+    pol64 = polish_card_vs_cpu(data, prob, v_host)
     profiled = ba_profile(prob)
-    log(f"ba: polish64 {s_polish:.2f} s on the host; a profiled LM "
+    log(f"ba: polish64 {pol64['seconds']:.3f} s on the card "
+        f"({len(pol64['history'])} costs; "
+        f"{pol64['launches_per_iteration']:.0f} launches, "
+        f"{pol64['device_ms_per_iteration']:.2f} ms of device time an "
+        f"iteration); card vs CPU {pol64['gap_rel']:.1e} apart "
+        f"({len(pol64['history'])} / {len(pol64['cpu_history'])} costs, the "
+        f"start's {pol64['start_gap_rel']:.1e}), first "
+        f"{pol64['prefix']['steps']} steps {pol64['prefix']['gap_rel']:.1e}; "
+        f"a profiled LM "
         f"iteration {profiled['wall_ms_per_iteration']:.2f} ms wall, "
         f"{profiled['device_busy_ms_per_iteration']:.2f} ms device busy, "
         f"idle {profiled['device_idle_share']:.3f}")
@@ -1821,7 +1888,7 @@ def phase_ba(device):
                              iterations_per_s=n_dev / s_dev,
                              final_cost=h_dev[-1]),
         loops_centre_diff_m=d_loops,
-        polish64=dict(seconds=s_polish, history=[float(x) for x in h_polish]),
+        polish64=pol64,
         profile=profiled,
         linearize_ms=lin_ms, solve_delta_dense_ms=solve_ms,
         jacobians_ms=jac_ms,

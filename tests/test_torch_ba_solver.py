@@ -17,10 +17,13 @@ residuals, not on the solver; the cost and the centres are held at
 ``rtol=0``.  torch runs on one thread here so that its sums have one
 order."""
 
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mqslam_tpu.ba import polish64 as jpol, problem as jp, solver as js
 from mqslam_tpu.ba import synthetic as jsyn, validate as jval
@@ -281,8 +284,8 @@ def test_refusals(problems):
 
 @pytest.mark.parametrize("which", ["cube", "icl40"])
 def test_polish64(problems, solves, which):
-    """polish64 is float64 NumPy in both packages: from the same float32
-    start the costs agree to 1e-9 relative and the variables to 1e-6."""
+    """polish64 is float64 in both packages (NumPy, torch): from the same
+    float32 start the costs agree to 1e-9 relative and the variables to 1e-6."""
     J, T = problems[which]["J"], problems[which]["T"]
     vj0 = solves[which]["jax"][0]
     vt0 = convert.variables_from_numpy(
@@ -295,6 +298,87 @@ def test_polish64(problems, solves, which):
     assert vt.pose_t.device == T.init.pose_t.device
     for k, a in convert.variables_to_numpy(vt).items():
         np.testing.assert_allclose(a, np.asarray(getattr(vj, k)), atol=1e-6)
+
+
+@pytest.mark.parametrize("which,start", [("icl40", "lm"),
+                                         ("cube", "polished"),
+                                         ("icl40", "polished")])
+def test_polish64_runs_as_the_jax_package(problems, solves, which, start):
+    """``test_polish64``'s comparison at ``refine``'s 12 iterations: from
+    the LM's answer (on icl40 the stop rule ends it after 6), and from a
+    start the polish has already brought to its float64 optimum, where no
+    step gains what float64 resolves: the first is rejected (the cube) or
+    gains under 1e-13 (icl40) and the stop rule ends the run at the
+    second, in both packages."""
+    J, T = problems[which]["J"], problems[which]["T"]
+    vt0 = convert.variables_from_numpy(
+        {k: np.asarray(x) for k, x in solves[which]["jax"][0]._asdict()
+         .items()}, "cpu")
+    if start == "polished":     # the port's float64 answer, not rounded
+        p6, pts, _ = tpol._polish64(T, vt0, 12, 1e-10, False)
+        vt0 = tp.BAVariables(p6[:, :3], p6[:, 3:], pts)
+    vj0 = jp.BAVariables(**convert.variables_to_numpy(vt0))
+    vj, hj = jpol.polish64(J, vj0, max_iters=12)
+    vt, ht = tpol.polish64(T, vt0, max_iters=12)
+    assert len(ht) == len(hj) < 13
+    np.testing.assert_allclose(ht, hj, rtol=1e-9)
+    if start == "polished":
+        assert len(ht) == 3
+        assert abs(ht[-1] - ht[0]) <= 1e-12 * ht[0]
+        if which == "cube":
+            assert ht[1] == ht[0] and hj[1] == hj[0]
+    for k, a in convert.variables_to_numpy(vt).items():
+        np.testing.assert_allclose(a, np.asarray(getattr(vj, k)), atol=1e-6)
+
+
+class HostOps(TorchDispatchMode):
+    """Counts the ATen calls that make or move host data, as
+    ``tests/test_torch_tracker.py``'s: ``lift_fresh`` (``torch.tensor``),
+    ``copy_``, ``_to_copy`` onto a device, and ``_local_scalar_dense`` (a
+    read back to the host)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.__name__.split(".")[0]
+        if name in ("lift_fresh", "copy_", "_local_scalar_dense") or (
+                name == "_to_copy" and "device" in kwargs):
+            self.ops[name] += 1
+        return func(*args, **kwargs)
+
+
+def test_polish64_reads_the_host_once_an_iteration(problems, solves,
+                                                   monkeypatch):
+    """The polish iterates on the problem's device: one read back to the
+    host for the start's cost (``item``) and one an iteration (``tolist``
+    of the trial cost and the solve's status), no other read, no host
+    tensor made and no copy between devices (``_to_copy`` onto a device,
+    ``cpu``, ``numpy``); on a card a ``cpu()`` or ``to(device)`` shows as
+    such a copy, which the CPU's no-op ``to`` hides, so ``cpu`` and
+    ``numpy`` are counted by name."""
+    T = problems["icl40"]["T"]
+    v0 = solves["icl40"]["port"][0]
+    calls = collections.Counter()
+    for name in ("tolist", "cpu", "numpy"):
+        real = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _name=name, _real=real, **k):
+            calls[_name] += 1
+            return _real(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    with HostOps() as host:
+        _, hist = tpol.polish64(T, v0, max_iters=12)
+    monkeypatch.undo()
+    iterations = calls.pop("tolist")
+    assert host.ops == {"_local_scalar_dense": 1}, host.ops
+    assert not calls, calls
+    # an iteration that breaks on the damping's cap or a failed solve
+    # appends no cost
+    assert len(hist) - 1 <= iterations <= len(hist)
+    assert iterations >= 2
 
 
 @pytest.mark.parametrize("which", ["cube", "icl40"])
