@@ -131,9 +131,11 @@ def _psum(x, group):
     """``jax.lax.psum`` over ``group``: every rank's ``x`` summed, in place
     in ``x`` and returned; ``x`` itself when ``group`` is None.  ``x`` must
     be a fresh partial that nothing else reads.  A group of one rank still
-    runs the collective."""
+    runs the collective.  While tracing is on, counter
+    ``ba.allreduce_bytes`` counts the call and its bytes."""
     if group is None:
         return x
+    profiling.count("ba.allreduce_bytes", x.numel() * x.element_size())
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
@@ -568,7 +570,8 @@ def solve_delta(problem: BAProblem, lin: Linearization, lam,
     the device: an iteration past the stop is computed and discarded by
     ``torch.where``, so x, r and the count equal those of a loop that
     stopped, and the host reads the stop flag every ``CG_CHECK_EVERY``
-    iterations only.
+    iterations only.  While tracing is on, the count is added on the
+    device to counter ``ba.cg_iters`` (``utils/profiling.count``).
 
     ``group`` (the JAX package's ``axis_name``): the problem's observation
     rows and ``lin`` are this rank's; ``layout`` None (COO) or this rank's
@@ -636,6 +639,7 @@ def solve_delta(problem: BAProblem, lin: Linearization, lam,
 
         # back-substitute landmarks: dp = -Hpp^-1 (g_p + W^T dc)
         delta_point = -hpp_solve(lin.g_point + hooks.wt_full(delta_pose))
+    profiling.count("ba.cg_iters", it)
     return delta_pose, delta_point, it
 
 

@@ -32,6 +32,7 @@ from mqslam_tpu_torch.ba.banded import (build_sharded_banded_layout,
 from mqslam_tpu_torch.ba.packed import (build_sharded_packed_layout,
                                         layout_shard)
 from mqslam_tpu_torch.ba.problem import BAProblem
+from mqslam_tpu_torch.utils import profiling
 
 __all__ = ["pad_problem_for_shards", "shard_problem_for_mesh",
            "local_rows", "build_layout_for_mesh", "build_banded_for_mesh",
@@ -132,15 +133,10 @@ def make_sharded_lm_iteration(group, cg_iters: int = 200,
     return iteration
 
 
-def _sharded_cost(group):
-    """(local problem, v) -> the cost, its observation part summed over
-    ``group``."""
-    return lambda problem, v: ba_solver.compute_cost(problem, v, group)
-
-
 def sharded_lm_solve(problem: BAProblem, group=None, max_iters: int = 40,
                      lam0: float = 1e-6, cg_iters: int = 1000,
-                     verbose: bool = False, layout="auto"):
+                     verbose: bool = False, layout="auto",
+                     cg_tol: float = 1e-10, rtol: float = 0.0):
     """LM outer loop over the sharded iteration (host accept / reject).
 
     Semantics of ``ba.solver.lm_solve``; the observation rows shard over
@@ -150,50 +146,78 @@ def sharded_lm_solve(problem: BAProblem, group=None, max_iters: int = 40,
     banded grid, else the sharded packed layout, else COO (the JAX
     package's order); None forces COO; a built layout (this rank's block)
     is used as given, with the problem it was built for.  The local problem
-    lives on the problem's device.  Returns (v, history of costs), v
-    replicated on every rank."""
-    _, world = _rank_world(group)
-    padded = pad_problem_for_shards(problem, world)
-    if isinstance(layout, str):
-        if layout != "auto":
-            raise ValueError(f"layout={layout!r}: 'auto', None or a built "
-                             "sharded layout block")
-        out = build_banded_for_mesh(padded, group)
-        if out is not None:
-            layout, padded = out
-        else:
-            layout = build_layout_for_mesh(padded, group)
-    problem = shard_problem_for_mesh(padded, group)
-    lm_iter = make_sharded_lm_iteration(group, cg_iters=cg_iters)
-    cost_fn = _sharded_cost(group)
+    lives on the problem's device.  Each outer iteration linearizes (and
+    packs its layout's tables) once, then makes up to six attempts, each a
+    Schur-CG solve (``cg_iters``, ``cg_tol``) and an update whose reduced
+    cost decides; it stops when no attempt improves or, with ``rtol``,
+    when the relative decrease falls below it, as ``lm_solve``.  Returns
+    (v, history of costs), v replicated on every rank.
 
-    v = problem.init
-    lam = lam0
-    cost = float(cost_fn(problem, v))
-    history = [cost]
-    for it in range(max_iters):
-        improved = False
-        for _ in range(6):
-            dc, dp, _ = lm_iter(problem, v, lam, layout)
-            v_try = ba_solver.apply_delta(v, dc, dp)
-            nc = float(cost_fn(problem, v_try))
-            if nc < cost:
-                v, cost = v_try, nc
-                lam = max(lam / 2.0, 1e-9)
-                improved = True
+    Spans (``utils/profiling.span``, none of which synchronizes):
+    ``ba.sharded.layout`` the padding, the layout's build and the shard on
+    the host, ``ba.sharded.lm`` the loop, ``ba.sharded.linearize`` each
+    outer iteration's linearization and packing, ``ba.sharded.step`` each
+    attempt's solve and update, ``ba.sharded.cost`` each reduced cost and
+    its read to the host, the initial one included."""
+    _, world = _rank_world(group)
+    dev = problem.device
+    with profiling.span("ba.sharded.layout", dev):
+        padded = pad_problem_for_shards(problem, world)
+        if isinstance(layout, str):
+            if layout != "auto":
+                raise ValueError(f"layout={layout!r}: 'auto', None or a "
+                                 "built sharded layout block")
+            out = build_banded_for_mesh(padded, group)
+            if out is not None:
+                layout, padded = out
+            else:
+                layout = build_layout_for_mesh(padded, group)
+        problem = shard_problem_for_mesh(padded, group)
+
+    def cost_read(v):
+        with profiling.span("ba.sharded.cost", dev, drained=True):
+            return float(ba_solver.compute_cost(problem, v, group))
+
+    with profiling.span("ba.sharded.lm", dev):
+        v = problem.init
+        lam = lam0
+        cost = cost_read(v)
+        history = [cost]
+        for it in range(max_iters):
+            with profiling.span("ba.sharded.linearize", dev):
+                lin = ba_solver.linearize(problem, v, group=group)
+                pJ = (ba_solver.pack_for_layout(lin, layout, group)
+                      if layout is not None else None)
+            improved = False
+            for _ in range(6):
+                with profiling.span("ba.sharded.step", dev):
+                    dc, dp, _ = ba_solver.solve_delta(
+                        problem, lin, lam, cg_iters=cg_iters, cg_tol=cg_tol,
+                        group=group, layout=layout, packedJ=pJ)
+                    v_try = ba_solver.apply_delta(v, dc, dp)
+                nc = cost_read(v_try)
+                if nc < cost:
+                    v, cost = v_try, nc
+                    lam = max(lam / 2.0, 1e-9)
+                    improved = True
+                    break
+                lam = min(lam * 8.0, 1e6)
+            history.append(cost)
+            if verbose:
+                print(f"sharded LM iter {it}: cost={cost:.6e} lam={lam:.2e}")
+            if not improved:
                 break
-            lam = min(lam * 8.0, 1e6)
-        history.append(cost)
-        if verbose:
-            print(f"sharded LM iter {it}: cost={cost:.6e} lam={lam:.2e}")
-        if not improved:
-            break
-    return v, history
+            if rtol > 0 and len(history) > 2 and (
+                    history[-2] - history[-1]
+                    < rtol * max(history[-2], 1e-30)):
+                break
+        return v, history
 
 
 def sharded_lm_solve_device(problem: BAProblem, group=None,
                             max_iters: int = 40, lam0: float = 1e-6,
-                            cg_iters: int = 1000, layout="auto"):
+                            cg_iters: int = 1000, layout="auto",
+                            cg_tol: float = 1e-10, rtol: float = 0.0):
     """The JAX package's device-loop entry point, over ``sharded_lm_solve``.
 
     As ``ba.solver.lm_solve_device`` wraps ``lm_solve``: PyTorch has no
@@ -201,5 +225,6 @@ def sharded_lm_solve_device(problem: BAProblem, group=None,
     reduced cost on the host either way.  Returns (v, history_list,
     n_iters), n_iters the outer iterations run."""
     v, hist = sharded_lm_solve(problem, group, max_iters=max_iters,
-                               lam0=lam0, cg_iters=cg_iters, layout=layout)
+                               lam0=lam0, cg_iters=cg_iters, layout=layout,
+                               cg_tol=cg_tol, rtol=rtol)
     return v, hist, len(hist) - 1

@@ -12,6 +12,11 @@ reading), taken when tracing turns on, so a span's device end lines up with
 what the host was doing; the clocks drift apart, so ``span_stats`` and each
 span that ends in a read-back (``drained``) anchor anew.
 
+``count(name, value)`` adds to a counter while tracing is on, as a span
+records while it is on: ``value`` is a host number or a 0-dim device
+tensor, which is summed on its device with no host read until
+``counter_stats`` reads the totals.
+
 ``Stages`` is the synchronizing mode of the same regions: given a sink, its
 ``mark(key)`` waits for the device and adds the host time since the previous
 mark to ``sink[key]``, and its ``span(name, key)`` is the span whose exit is
@@ -32,7 +37,7 @@ import time
 import torch
 
 __all__ = ["Timer", "trace", "sync", "span", "enable", "disable", "reset",
-           "span_stats", "Stages"]
+           "span_stats", "count", "counter_stats", "Stages"]
 
 # pending spans are folded once this many wait, and the oldest dropped past
 # MAX_PENDING; the launch queue's depth bounds the events not yet reached,
@@ -47,6 +52,7 @@ class _Spans:
         self.on = False          # enable() in force
         self.ranges = False      # inside trace(): spans open record_function
         self.totals = {}         # name -> [count, host s, end s, device s]
+        self.counters = {}       # name -> [calls, host sum, device sum]
         self.pending = collections.deque()
         self.pool = []
         self.anchors = {}        # device index -> (event, host seconds)
@@ -185,9 +191,39 @@ def disable():
 
 
 def reset():
-    """Forget every span recorded so far."""
+    """Forget every span and counter recorded so far."""
     _S.totals.clear()
     _S.pending.clear()
+    _S.counters.clear()
+
+
+def count(name, value=1):
+    """Add ``value`` (a host number, or a 0-dim tensor summed on its device
+    without a host read) to counter ``name`` while tracing is on; nothing
+    otherwise."""
+    if not (_S.on or _profiling()):
+        return
+    c = _S.counters.get(name)
+    if c is None:
+        c = _S.counters[name] = [0, 0, None]
+    c[0] += 1
+    if torch.is_tensor(value):
+        c[2] = value.detach().to(torch.int64) if c[2] is None \
+            else c[2] + value.detach()
+    else:
+        c[1] += value
+
+
+def counter_stats(prefix=""):
+    """{name: {calls, total}} of the counters whose name starts with
+    ``prefix``: the calls to ``count`` and their values' sum (one host read
+    of each device sum)."""
+    out = {}
+    for k, (calls, host, dev) in sorted(_S.counters.items()):
+        if k.startswith(prefix):
+            out[k] = dict(calls=calls,
+                          total=host + (int(dev) if dev is not None else 0))
+    return out
 
 
 def span_stats(prefix=""):
